@@ -1,0 +1,127 @@
+"""Progressive (row-chunked) SPLS plan construction.
+
+The accelerator never materializes the full Predicted Attention Matrix:
+its *progressive generation scheme* (Sec. IV-C) predicts Q, attention and
+similarity one local window at a time.  The serving planner follows it:
+each prefill chunk (a multiple of the similarity window ``w``) emits one
+:class:`ChunkPlanBlock` against every column seen so far -- its intra-row
+top-k mask, its per-window critical/leader structure, its OR into the K/V
+column-keep vote, and its MFI votes for FFN sparsity.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from .mfi import mfi_ffn_sparsity
+from .similarity import local_similarity
+
+__all__ = ["CAUSAL_FILL", "ChunkPlanBlock", "plan_chunk", "bisect_topk_mask",
+           "votes_from_kv_any"]
+
+# Causal / invalid-column fill for PAM blocks.  Must round-trip bfloat16
+# (bf16 max is ~3.39e38) and sit far below any real predicted score so the
+# bisection's lo-init can exclude it with a simple `< -1e29` test.
+CAUSAL_FILL = -3e38
+
+
+def bisect_topk_mask(pam32: torch.Tensor, k, n_iters: int = 12
+                     ) -> torch.Tensor:
+    """Threshold-based row-wise top-k via bisection on the last axis.
+
+    ``n_iters`` halvings pin the k-th value to ``range / 2^n_iters``; a few
+    tie entries more or less are harmless for column-keep and similarity.
+    Fill entries (``< -1e29``, e.g. :data:`CAUSAL_FILL`) never pass the
+    threshold and are excluded from the lo-init.
+    """
+    hi = pam32.amax(-1, keepdim=True)
+    # the range must span only *valid* entries: the fill value would
+    # otherwise eat every bisection step
+    lo = torch.where(pam32 < -1e29, hi, pam32).amin(-1, keepdim=True)
+    for _ in range(n_iters):
+        mid = 0.5 * (lo + hi)
+        cnt = (pam32 >= mid).sum(-1, keepdim=True)
+        lo = torch.where(cnt >= k, mid, lo)
+        hi = torch.where(cnt >= k, hi, mid)
+    return pam32 >= lo
+
+
+class ChunkPlanBlock(NamedTuple):
+    """Plan for one row block of the PAM over ``S`` column slots; leading
+    dims ``(B, KV, G)``, ``C`` rows."""
+
+    mask: torch.Tensor          # (B, KV, G, C, S) bool intra-row SPA mask
+    q_critical: torch.Tensor    # (B, KV, G, C) bool
+    q_leader: torch.Tensor      # (B, KV, G, C) int32 *global* row ids
+    kv_any: torch.Tensor        # (B, KV, G, S) bool: this block's column OR
+    ffn_critical: torch.Tensor  # (B, C) bool
+    ffn_leader: torch.Tensor    # (B, C) int32 global row ids
+
+
+def _block_pam_mask(qh_blk: torch.Tensor, kh: torch.Tensor, *, k, row0,
+                    n_valid_rows, n_cols, causal: bool,
+                    scale: Optional[float]
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """PAM block -> top-k mask.  Returns ``(mask (B,KV,G,C,S), pam32)``.
+
+    The PAM is computed in float32, rounded to bfloat16 (the prediction is
+    already 8-bit math; the reference stores the block in bf16) and widened
+    again, so both packages threshold the same values.
+    """
+    Dh = qh_blk.shape[-1]
+    C = qh_blk.shape[-2]
+    S = kh.shape[-2]
+    scale = scale if scale is not None else Dh ** -0.5
+    pam = (torch.matmul(qh_blk, kh.unsqueeze(2).transpose(-1, -2)) * scale
+           ).to(torch.bfloat16)
+    dev = qh_blk.device
+    qi = row0 + torch.arange(C, device=dev)
+    kj = torch.arange(S, device=dev)
+    cmask = (kj[None, :] < n_cols).expand(C, S)
+    if causal:
+        cmask = cmask & (kj[None, :] <= qi[:, None])
+    pam = pam.masked_fill(~cmask, CAUSAL_FILL)
+    pam32 = pam.to(torch.float32)
+    valid_rows = torch.arange(C, device=dev) < n_valid_rows
+    mask = bisect_topk_mask(pam32, k)
+    mask = mask & cmask & valid_rows[:, None]
+    return mask, pam32
+
+
+def plan_chunk(qh_blk: torch.Tensor, kh: torch.Tensor, *, k, row0,
+               n_valid_rows, n_cols, s_threshold: float, window: int,
+               f_threshold: int, causal: bool = True,
+               scale: Optional[float] = None) -> ChunkPlanBlock:
+    """SPLS plan for a single row block -- the progressive-generation unit.
+
+    qh_blk: (B, KV, G, C, Dh) predicted q heads for rows ``row0 ..
+    row0+C``; kh: (B, KV, S, Dh) predicted k heads for every column slot
+    seen so far.  ``row0`` and C must be window multiples, so similarity
+    windows are exactly those of an unchunked pass.  Padded rows are never
+    critical and never lead; padded/future columns are filled with
+    :data:`CAUSAL_FILL` and never voted for.
+    """
+    B, KVp, Gp, C, Dh = qh_blk.shape
+    mask, pam32 = _block_pam_mask(qh_blk, kh, k=k, row0=row0,
+                                  n_valid_rows=n_valid_rows, n_cols=n_cols,
+                                  causal=causal, scale=scale)
+    spa = torch.where(mask, pam32, torch.zeros_like(pam32))
+    sim = local_similarity(spa, window, s_threshold, valid_len=n_valid_rows)
+    leader = sim.leader + row0                      # block-local -> global
+    kv_any = mask.any(dim=-2)
+    leaders_h = sim.leader.reshape(B, KVp * Gp, C)  # block-local for MFI
+    ffn = mfi_ffn_sparsity(leaders_h, window, f_threshold)
+    return ChunkPlanBlock(mask=mask, q_critical=sim.is_critical,
+                          q_leader=leader, kv_any=kv_any,
+                          ffn_critical=ffn.is_critical,
+                          ffn_leader=ffn.leader + row0)
+
+
+def votes_from_kv_any(kv_any: torch.Tensor) -> torch.Tensor:
+    """(B, KV, G, S) per-head column-keep bools -> (S,) head-vote counts
+    (of batch row 0).  The cross-chunk accumulator is an OR per head, after
+    which the vote is the head count."""
+    B, S = kv_any.shape[0], kv_any.shape[-1]
+    return kv_any.reshape(B, -1, S).sum(dim=1).to(torch.int32)[0]

@@ -1,0 +1,30 @@
+"""Hand-written CUDA kernels of the PyTorch port, with their plain
+versions and launch counters.
+
+Sources live in ``repro_torch/csrc/`` and build with ``nvcc`` at first use
+(:mod:`._build`).  Each wrapper takes its plain PyTorch version only for
+CPU tensors; for CUDA tensors it launches the kernel or raises.
+"""
+
+from .gathered_matmul import (gather_rows, gather_rows_plain,
+                              gathered_matmul, gathered_matmul_plain)
+from .paged_decode import paged_decode_plain, paged_flash_decode
+
+KERNELS = (gathered_matmul, gather_rows, paged_flash_decode)
+
+
+def reset_launch_counts() -> None:
+    """Set every kernel wrapper's launch count to 0."""
+    for fn in KERNELS:
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    """``{kernel name: launches since the last reset}``."""
+    return {fn.__name__: fn.launches for fn in KERNELS}
+
+
+__all__ = ["gathered_matmul", "gather_rows", "paged_flash_decode",
+           "gathered_matmul_plain", "gather_rows_plain",
+           "paged_decode_plain", "KERNELS", "reset_launch_counts",
+           "launch_counts"]

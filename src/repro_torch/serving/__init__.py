@@ -1,0 +1,22 @@
+"""Paged SPLS-aware serving of the PyTorch port.
+
+Block-pool KV cache (:mod:`pager`), paged model execution
+(:mod:`paged_model`), the continuous-batching scheduler with chunked
+prefill and preemption (:mod:`scheduler`), and the engine (:mod:`engine`).
+"""
+
+from .pager import (NULL_PAGE, POS_SENTINEL, PagedKVCache, PagePool,
+                    PredKCache, init_paged_cache, init_pos_pages,
+                    init_pred_cache, keep_from_votes)
+from .paged_model import (compact_slots, paged_decode_step,
+                          paged_prefill_chunk_spls)
+from .scheduler import Scheduler, SchedulerConfig, SeqState
+from .engine import PagedServingEngine, Request, ServeConfig
+
+__all__ = [
+    "NULL_PAGE", "POS_SENTINEL", "PagedKVCache", "PagePool", "PredKCache",
+    "init_paged_cache", "init_pos_pages", "init_pred_cache",
+    "keep_from_votes", "compact_slots", "paged_decode_step",
+    "paged_prefill_chunk_spls", "Scheduler", "SchedulerConfig", "SeqState",
+    "PagedServingEngine", "Request", "ServeConfig",
+]

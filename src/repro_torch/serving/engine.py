@@ -1,0 +1,397 @@
+"""The paged serving engine: continuous batching over the block pool.
+
+:class:`PagedServingEngine` keeps KV in a shared
+:class:`~repro_torch.serving.pager.PagePool`; requests hold block tables
+instead of cache rows, prompts prefill in chunks *between* decode ticks
+(no head-of-line blocking), admission is keyed on free pages, and a dry
+pool preempts the youngest sequence by page eviction.  With SPLS, each
+chunk carries its slice of the progressive sparsity plan, Q and the FFN
+run only on critical rows (packed compute), and the end-of-prefill prune
+vote compacts kept KV columns so the paper's sparsity buys pool capacity.
+
+This slice of the port serves the reference's main path: SPLS on, packed
+compute, the end-of-prefill prune vote, greedy sampling.  The other
+configurations raise ``NotImplementedError`` naming the ROADMAP.md item
+that ports them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import warnings
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.topk import topk_count
+from repro_torch.device import resolve_device
+from repro_torch.models.attn_backend import site_backend
+from repro_torch.observability import Telemetry, tree_bytes
+from repro_torch.sparse_compute import (CapacityController, chunk_flops,
+                                        is_packed, resolve_compute_backend)
+
+from .pager import (NULL_PAGE, PagePool, init_paged_cache, init_pos_pages,
+                    init_pred_cache, keep_from_votes)
+from .paged_model import (compact_slots, paged_decode_step,
+                          paged_prefill_chunk_spls)
+from .scheduler import Scheduler, SchedulerConfig, SeqState
+
+__all__ = ["Request", "ServeConfig", "PagedServingEngine"]
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: object                 # (Lp,) token ids: tensor, array or list
+    max_new_tokens: int = 16
+    eos_id: Optional[int] = None
+    # filled by the engine:
+    output: List[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    """Every field of the reference's ``ServeConfig``, same defaults."""
+
+    n_slots: int = 4
+    max_len: int = 256
+    greedy: bool = True
+    temperature: float = 1.0
+    seed: int = 0
+    # paged-decode backend (None = cfg/auto); reference names are aliases
+    attn_backend: Optional[str] = None
+    page_size: int = 16
+    n_pages: Optional[int] = None   # None -> n_slots * pages(max_len) + 1
+    prefill_chunk: int = 64
+    max_prefills_per_tick: int = 1
+    watermark: int = 0
+    spls_page_prune: bool = True    # prune dead KV columns out of the pool
+    spls_prune_vote: float = 0.5    # head-vote fraction a column must win
+    auto_align_chunk: bool = False
+    # None -> cfg.compute_backend; packed backends compute only critical
+    # rows at bucketed static capacities
+    compute_backend: Optional[str] = None
+    capacity_buckets: Optional[Tuple[int, ...]] = None
+    capacity_margin: float = 1.25
+    vote_horizon: Optional[int] = None
+    telemetry: bool = True
+
+
+def _prompt_tokens(prompt) -> List[int]:
+    if isinstance(prompt, torch.Tensor):
+        return [int(t) for t in prompt.reshape(-1).tolist()]
+    return [int(t) for t in np.asarray(prompt).reshape(-1)]
+
+
+def _unsupported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP.md, {item}); this slice serves "
+        f"SPLS with packed compute, the end-of-prefill prune vote and "
+        f"greedy sampling")
+
+
+class PagedServingEngine:
+    """Continuous batching over the block-pool paged KV cache.
+
+    ``device=None`` runs on the card and raises without one (pass
+    ``device="cpu"`` to run on the CPU); ``params`` move to the device.
+    """
+
+    def __init__(self, cfg, params, scfg: ServeConfig,
+                 device: Optional[str] = None):
+        self.device = resolve_device(device)
+        if cfg.input_mode != "tokens":
+            raise ValueError("the engine serves token models")
+        if not all(b.mixer == "attn" for b in cfg.period):
+            raise ValueError("the paged engine is attention-only (SSM state "
+                             "is O(1) per slot)")
+        if not cfg.causal:
+            raise _unsupported("whole-prompt prefill (non-causal models)",
+                               "Queue A, deferred item 1")
+        if not cfg.spls.enabled:
+            raise _unsupported("serving without SPLS (the non-SPLS chunk "
+                               "step)", "Queue A, deferred item 2")
+        if not scfg.spls_page_prune:
+            raise _unsupported("SPLS serving without page pruning",
+                               "Queue A, deferred item 2")
+        if scfg.vote_horizon is not None:
+            raise _unsupported("vote_horizon", "Queue A, deferred item 3")
+        if not scfg.greedy:
+            raise _unsupported("temperature sampling (greedy=False)",
+                               "Queue A, deferred item 5")
+        if scfg.prefill_chunk % cfg.spls.window:
+            if scfg.auto_align_chunk:
+                aligned = -(-scfg.prefill_chunk // cfg.spls.window) \
+                    * cfg.spls.window
+                warnings.warn(
+                    f"prefill_chunk ({scfg.prefill_chunk}) is not a "
+                    f"multiple of the SPLS similarity window "
+                    f"({cfg.spls.window}); auto_align_chunk rounded it up "
+                    f"to {aligned}", RuntimeWarning, stacklevel=2)
+                scfg = dataclasses.replace(scfg, prefill_chunk=aligned)
+            else:
+                raise ValueError(
+                    f"prefill_chunk ({scfg.prefill_chunk}) must be a "
+                    f"multiple of the SPLS similarity window "
+                    f"({cfg.spls.window}): chunk boundaries must align "
+                    f"with similarity windows for chunked prefill to "
+                    f"reproduce the full-prefill plan (set "
+                    f"ServeConfig.auto_align_chunk=True to round up)")
+        self._compute = resolve_compute_backend(
+            scfg.compute_backend if scfg.compute_backend is not None
+            else cfg.compute_backend, sparse=True, device=self.device)
+        if not is_packed(self._compute):
+            raise _unsupported(
+                f"compute backend {self._compute!r} (simulation-mode "
+                f"compute)", "Queue A, deferred item 2")
+        self._attn_backend = site_backend(
+            scfg.attn_backend if scfg.attn_backend is not None
+            else cfg.attn_backend)
+        self.cfg, self.scfg = cfg, scfg
+        self.params = _to_device(params, self.device)
+
+        ps = scfg.page_size
+        self.page_size = ps
+        self.pages_per_seq = math.ceil(scfg.max_len / ps)
+        n_pages = (scfg.n_pages if scfg.n_pages is not None
+                   else scfg.n_slots * self.pages_per_seq + 1)
+        self.pool = PagePool(n_pages, ps)
+        cs = scfg.prefill_chunk
+        self._cap_q = CapacityController(cs, buckets=scfg.capacity_buckets,
+                                         margin=scfg.capacity_margin)
+        self._cap_f = CapacityController(cs, buckets=scfg.capacity_buckets,
+                                         margin=scfg.capacity_margin)
+        self.telemetry = Telemetry(enabled=scfg.telemetry)
+        self.sched = Scheduler(
+            SchedulerConfig(n_slots=scfg.n_slots,
+                            prefill_chunk=scfg.prefill_chunk,
+                            max_prefills_per_tick=scfg.max_prefills_per_tick,
+                            watermark=scfg.watermark),
+            self.pool, scfg.max_len, chunkable=True, prune_aware=True,
+            # packed compute routes every prompt through the chunk path
+            chunk_all=True, telemetry=self.telemetry)
+
+        self.cache = init_paged_cache(cfg, n_pages, ps, self.device)
+        self.pos_pages = init_pos_pages(n_pages, ps, self.device)
+        # allocated lazily on the first chunk, as in the reference
+        self.pred_cache = None
+        self._n_pages = n_pages
+        self._retired: List[Request] = []
+        self.telemetry.sparsity.note_pool_bytes(tree_bytes(self.cache))
+
+    # ------------------------------------------------------------------
+    @property
+    def stats(self) -> dict:
+        """Scheduler counters, pool gauges and capacity-controller
+        snapshots, assembled fresh per read."""
+        return {**self.sched.stats,
+                "pages_in_use": self.pool.pages_in_use,
+                "peak_pages": self.pool.peak_in_use,
+                "free_pages": self.pool.free_pages,
+                "guard_trips": self.pool.guard_trips,
+                "compute_backend": self._compute,
+                "flops_saved_pct": self.sched.flops_saved_pct(),
+                "capacity_q": self._cap_q.snapshot(),
+                "capacity_ffn": self._cap_f.snapshot()}
+
+    def submit(self, req: Request) -> None:
+        tokens = _prompt_tokens(req.prompt)
+        lp = len(tokens)
+        if lp == 0:
+            raise ValueError(f"request {req.rid}: empty prompt")
+        if lp > self.scfg.max_len:
+            raise ValueError(f"request {req.rid}: prompt {lp} exceeds "
+                             f"max_len {self.scfg.max_len}")
+        if min(tokens) < 0 or max(tokens) >= self.cfg.vocab_size:
+            raise ValueError(f"request {req.rid}: token ids must lie in "
+                             f"[0, {self.cfg.vocab_size})")
+        self.sched.submit(req, tokens, req.max_new_tokens)
+        self.telemetry.request_submitted(req.rid, lp)
+
+    # ------------------------------------------------------------------
+    def _table_row(self, st: SeqState) -> np.ndarray:
+        row = np.full((self.pages_per_seq,), NULL_PAGE, np.int32)
+        row[:len(st.pages)] = st.pages
+        return row
+
+    def _tensor(self, a) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a)).to(self.device)
+
+    def _chunk_prefill(self, st: SeqState) -> None:
+        tel = self.telemetry
+        cs = self.sched.cfg.prefill_chunk
+        start = st.prefilled     # == st.kv_len: columns stay dense until
+        #                          the end-of-prefill compaction
+        valid = min(cs, st.prompt_len - start)
+        if not self.sched.grow_to(st, start + valid):
+            return   # preempted/aborted; telemetry unwound the track
+        tel.span_begin("prefill_chunk", rid=st.req.rid,
+                       args={"start": start, "valid": valid})
+        chunk = np.zeros((cs,), np.int32)
+        chunk[:valid] = st.tokens[start:start + valid]
+        if self.pred_cache is None:
+            self.pred_cache = init_pred_cache(self.cfg, self._n_pages,
+                                              self.page_size, self.device)
+            tel.sparsity.note_pool_bytes(tree_bytes(self.cache),
+                                         tree_bytes(self.pred_cache))
+        k = topk_count(st.prompt_len, self.cfg.spls.k_ratio)
+        cq = self._cap_q.capacity()
+        cf = self._cap_f.capacity() if self.cfg.spls.ffn_sparsity else None
+        logits, kv_any, counts = paged_prefill_chunk_spls(
+            self.cfg, self.params, self.cache, self.pred_cache,
+            self.pos_pages, self._tensor(self._table_row(st)), start,
+            self._tensor(chunk)[None, :], valid, k, q_capacity=cq,
+            ffn_capacity=cf, compute_backend=self._compute)
+        # cross-chunk vote accumulator: a head's "some row kept this
+        # column" bit only ever turns on, so OR is exact
+        votes = kv_any.reshape(self.cfg.n_heads, -1).cpu().numpy()
+        st.head_votes = (votes if st.head_votes is None
+                         else st.head_votes | votes)
+        # the host readback of the critical counts syncs on the chunk step
+        n_q, n_f, _ = (int(v) for v in counts.amax(dim=0).tolist())
+        self._cap_q.observe(n_q)
+        if n_q > cq:
+            self._cap_q.note_overflow()
+        tel.sparsity.note_capacity("q", cq, n_q, n_q > cq)
+        if self.cfg.spls.ffn_sparsity:
+            self._cap_f.observe(n_f)
+            if n_f > cf:
+                self._cap_f.note_overflow()
+            tel.sparsity.note_capacity("ffn", cf, n_f, n_f > cf)
+        self.sched.note_flops(chunk_flops(self.cfg, cs, start + valid,
+                                          q_rows=cq, ffn_rows=cf))
+        st.prefilled += valid
+        st.kv_len += valid
+        st.cur_pos += valid
+        self.sched.stats["prefill_chunks"] += 1
+        tel.span_end("prefill_chunk", rid=st.req.rid)
+        if st.phase == "decode":
+            self._finish_chunk_prune(st)
+            self._emit_first(st, logits[0, 0])
+
+    def _finish_chunk_prune(self, st: SeqState) -> None:
+        """Threshold the accumulated head votes once every prompt row has
+        voted, compact kept columns (in original order) into the front of
+        the sequence's own pages, and free the tail."""
+        tel = self.telemetry
+        tel.span_begin("prune_compact", rid=st.req.rid)
+        Lp = st.prompt_len
+        S = self.pages_per_seq * self.page_size
+        tel.sparsity.note_votes(st.head_votes[:, :Lp])
+        votes = st.head_votes.sum(axis=0).astype(np.int32)
+        keep = keep_from_votes(votes[:Lp], self.cfg.n_heads,
+                               self.scfg.spls_prune_vote)
+        n_kept = int(keep.sum())
+        keep_slots = np.zeros((S,), bool)
+        keep_slots[:Lp] = keep
+        compact_slots(self.cache, self.pos_pages,
+                      self._tensor(self._table_row(st)),
+                      self._tensor(keep_slots))
+        needed = self.pool.pages_for(n_kept)
+        if needed < len(st.pages):
+            self.pool.free(st.pages[needed:])
+            st.pages = st.pages[:needed]
+        st.kv_len = n_kept
+        st.head_votes = None
+        self.sched.note_prune(Lp, n_kept)
+        tel.sparsity.note_prune(Lp, n_kept)
+        tel.span_end("prune_compact", rid=st.req.rid,
+                     args={"kept": n_kept, "prompt_len": Lp})
+
+    def _emit_first(self, st: SeqState, logits_row: torch.Tensor) -> None:
+        st.req.output.append(int(torch.argmax(logits_row)))
+        st.budget -= 1
+        self.telemetry.first_token(st.req.rid)
+
+    # ------------------------------------------------------------------
+    def tick(self) -> int:
+        """One engine iteration; returns the number of slots decoded."""
+        self.sched.admit()
+        for st in self.sched.plan_prefills():
+            if self.sched.slots[st.slot] is not st:
+                continue  # preempted by an earlier prefill this tick
+            self._chunk_prefill(st)
+        self._retire_finished()  # prefill-emitted token may hit eos/budget
+
+        # grow pages for every decode-ready row (may preempt the youngest)
+        for st in list(self.sched.decode_ready()):
+            if self.sched.slots[st.slot] is not st or st.budget <= 0:
+                continue
+            self.sched.grow_to(st, st.kv_len + 1)
+        active = [st for st in self.sched.decode_ready() if st.budget > 0
+                  and len(st.pages) * self.page_size > st.kv_len]
+
+        n_decoded = 0
+        if active:
+            self.telemetry.span_begin("decode_tick",
+                                      args={"n_active": len(active)})
+            n_slots = self.scfg.n_slots
+            tables = np.full((n_slots, self.pages_per_seq), NULL_PAGE,
+                             np.int32)
+            kv_len = np.zeros((n_slots,), np.int32)
+            cur_pos = np.zeros((n_slots,), np.int32)
+            tokens = np.zeros((n_slots, 1), np.int32)
+            for st in active:
+                tables[st.slot] = self._table_row(st)
+                kv_len[st.slot] = st.kv_len
+                cur_pos[st.slot] = st.cur_pos
+                tokens[st.slot, 0] = st.req.output[-1]
+            logits = paged_decode_step(
+                self.cfg, self.params, self.cache, self.pos_pages,
+                self._tensor(tables), self._tensor(kv_len),
+                self._tensor(cur_pos), self._tensor(tokens),
+                backend=self._attn_backend)
+            nxt = logits[:, 0].argmax(dim=-1).tolist()
+            for st in active:
+                st.req.output.append(int(nxt[st.slot]))
+                st.kv_len += 1
+                st.cur_pos += 1
+                st.budget -= 1
+            n_decoded = len(active)
+            self.telemetry.span_end("decode_tick")
+            self.telemetry.tokens_decoded([st.req.rid for st in active])
+
+        self._retire_finished()
+        # sample after retirement so a drained pool reads 0 in the gauge
+        self.telemetry.sparsity.observe_pool(self.pool)
+        return n_decoded
+
+    def _retire_finished(self) -> None:
+        # requests the scheduler aborted (optimistic admission that never
+        # fit; see Scheduler.grow_to) retire with whatever they generated
+        for req in self.sched.aborted:
+            req.done = True
+            self._retired.append(req)
+            self.telemetry.request_aborted(req.rid)
+        self.sched.aborted.clear()
+        for st in list(self.sched.active()):
+            req = st.req
+            hit_eos = req.eos_id is not None and req.eos_id in req.output
+            if (st.phase == "decode"
+                    and (st.budget <= 0 or hit_eos
+                         or st.cur_pos >= self.scfg.max_len - 1)):
+                req.done = True
+                self.sched.retire(st)
+                self._retired.append(req)
+                self.telemetry.request_retired(req.rid)
+
+    def run_until_drained(self, max_ticks: int = 10000) -> List[Request]:
+        """Tick until everything drains; returns the requests retired
+        during this call, in retirement order."""
+        start = len(self._retired)
+        for _ in range(max_ticks):
+            self.tick()
+            if self.sched.idle():
+                break
+        return self._retired[start:]
+
+
+def _to_device(tree, device: torch.device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_to_device(v, device) for v in tree)
+    return tree.to(device)

@@ -1,0 +1,24 @@
+"""End-to-end sparse compute: token-compacted Q projection + FFN.
+
+* :mod:`backend` -- the compute-backend registry (``dense`` |
+  ``packed_torch`` | ``packed_cuda``; the reference names are aliases);
+* :mod:`packed` -- packed Q projection on the critical-row union and the
+  dense (gated) MLP on FFN-critical tokens, with leader broadcast;
+* :mod:`capacity` -- the capacity controller (observed critical-row counts
+  -> a small set of bucketed static capacities);
+* :mod:`accounting` -- analytic FLOPs (dense vs executed) per serving
+  prefill chunk.
+"""
+
+from .accounting import chunk_flops, saved_pct
+from .backend import (AUTO, DENSE, available_compute_backends,
+                      get_compute_backend, is_packed,
+                      resolve_compute_backend)
+from .capacity import CapacityController
+from .packed import packed_mlp, packed_project_q
+
+__all__ = [
+    "AUTO", "DENSE", "available_compute_backends", "get_compute_backend",
+    "is_packed", "resolve_compute_backend", "CapacityController",
+    "packed_mlp", "packed_project_q", "chunk_flops", "saved_pct",
+]
