@@ -1,32 +1,49 @@
-"""The SPLS planner's streaming plan step.
+"""The SPLS planner: the streaming plan step and the progressive plan.
 
 :class:`PlanContext` owns the quantized predictor state -- the head
 layout, the HLog prediction, and the int8 code encoding of the paged
-predictor cache -- and emits one plan block per prefill chunk through
-:func:`repro_torch.core.spls_chunked.plan_chunk`.  The serving chunk step
-(:func:`repro_torch.serving.paged_model.paged_prefill_chunk_spls`) drives
-it chunk by chunk; the column votes accumulate across chunks into the
-page-prune vote.
+predictor cache -- and emits plan blocks through
+:func:`repro_torch.core.spls_chunked.plan_chunk`.  Two ways of planning
+sit on it:
 
-Only the structured head layout and the streaming plan step are ported;
-the exact, scan and progressive full-sequence plans and the
-horizon-finalized vote (``vote_horizon``) wait for later work
-(ROADMAP.md).
+* **streaming serving** -- :meth:`PlanContext.encode_pred_qk` /
+  :meth:`PlanContext.decode_pred_k` / :meth:`PlanContext.plan_block`,
+  driven one chunk at a time by
+  :func:`repro_torch.serving.paged_model.paged_prefill_chunk_spls`; the
+  column votes accumulate across chunks into the page-prune vote;
+* **progressive full sequence** -- :meth:`PlanContext.iter_blocks` /
+  :meth:`PlanContext.plan_progressive` (window-aligned row blocks,
+  per-token quantization): what a whole-prompt prefill builds, and
+  exactly what the streaming step reproduces chunk by chunk.
+
+Only the structured head layout is ported.  The exact and scan plans
+(``plan_exact``, ``plan_scan``) and the horizon-finalized vote
+(``vote_horizon``) wait for later work (ROADMAP.md, Queue A).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Iterator, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
-from .predict import predict_qk_pre
+from .predict import predict_qk, predict_qk_pre
 from .quantizers import PROJECTORS, symmetric_quantize
-from .spls import SPLSConfig
-from .spls_chunked import ChunkPlanBlock, plan_chunk, votes_from_kv_any
+from .spls import SPLSConfig, SparsityPlan
+from .spls_chunked import (ChunkPlanBlock, plan_chunk, plan_chunk_votes,
+                           votes_from_kv_any)
+from .topk import topk_count
 
-__all__ = ["PlanContext", "votes_from_kv_any"]
+__all__ = ["PlanContext", "build_block_plan_progressive",
+           "progressive_plan_blocks", "votes_from_kv_any"]
+
+
+def _progressive_row_block(L: int, w: int) -> int:
+    """Row-block size of the progressive plan: a window multiple, at
+    most ~512 rows (the PAM block is O(row_block * L) per head)."""
+    return max(w, (min(512, L) // w) * w)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,6 +86,17 @@ class PlanContext:
         qh = qp.reshape(B, L, KV, G, Dh).permute(0, 2, 3, 1, 4)
         kh = kp.reshape(B, L, KV, Dh).permute(0, 2, 1, 3)
         return qh, kh
+
+    def predict_heads(self, p: dict, xn: torch.Tensor,
+                      act_axis: Optional[int] = -1
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Quantized prediction on the normalized block input -> ``(qh (B,
+        KV, G, L, Dh), kh (B, KV, L, Dh))``.  ``act_axis=-1`` is the
+        streaming-reproducible numerics (per-token scales)."""
+        wq, wk = self._weights2d(p)
+        qp, kp = predict_qk(xn, wq, wk, self.scfg.quant_method,
+                            self.scfg.quant_bits, act_axis=act_axis)
+        return self._layout(qp, kp)
 
     def encode_pred_qk(self, p: dict, xn: torch.Tensor):
         """Streaming prediction with the K side emitted as int8 codes.
@@ -117,3 +145,85 @@ class PlanContext:
                           window=self.scfg.window,
                           f_threshold=self.scfg.f_threshold,
                           causal=self.causal)
+
+    def vote_block(self, qh_blk: torch.Tensor, kh: torch.Tensor, *, k, row0,
+                   n_valid_rows, n_cols) -> torch.Tensor:
+        """Column-keep contribution only (skips the similarity stage)."""
+        return plan_chunk_votes(qh_blk, kh, k=k, row0=row0,
+                                n_valid_rows=n_valid_rows, n_cols=n_cols,
+                                causal=self.causal)
+
+    def row_block_for(self, L: int) -> int:
+        return _progressive_row_block(L, self.scfg.window)
+
+    def iter_blocks(self, p: dict, xn: torch.Tensor,
+                    row_block: Optional[int] = None,
+                    votes_only: bool = False) -> Iterator:
+        """Iterate the progressive planner's row blocks over a full
+        sequence ``xn (B, L, D)``: the one place that owns the predicted-
+        head layout, the window-aligned row blocking and the tail padding.
+        Yields a :class:`~repro_torch.core.spls_chunked.ChunkPlanBlock`
+        per block, or only its ``kv_any`` column-keep bools with
+        ``votes_only=True``."""
+        B, L, _ = xn.shape
+        qh, kh = self.predict_heads(p, xn, act_axis=-1)
+        w = self.scfg.window
+        rb = row_block or self.row_block_for(L)
+        if rb % w:
+            raise ValueError(f"row_block ({rb}) must be a multiple of the "
+                             f"similarity window ({w})")
+        nblk = -(-L // rb)
+        pad = nblk * rb - L
+        if pad:
+            qh = F.pad(qh, (0, 0, 0, pad))
+        k = topk_count(L, self.scfg.k_ratio)
+        step = self.vote_block if votes_only else self.plan_block
+        for i in range(nblk):
+            yield step(qh[..., i * rb:(i + 1) * rb, :], kh, k=k, row0=i * rb,
+                       n_valid_rows=min(rb, L - i * rb), n_cols=L)
+
+    def plan_progressive(self, p: dict, xn: torch.Tensor,
+                         row_block: Optional[int] = None) -> SparsityPlan:
+        """Full-sequence plan with streaming-reproducible numerics: exactly
+        what a chunk-by-chunk streaming prefill reproduces."""
+        B, L, _ = xn.shape
+        blocks = list(self.iter_blocks(p, xn, row_block))
+        mask = torch.cat([b.mask for b in blocks], -2)[..., :L, :]
+        q_crit = torch.cat([b.q_critical for b in blocks], -1)[..., :L]
+        q_lead = torch.cat([b.q_leader for b in blocks], -1)[..., :L]
+        kv_keep = blocks[0].kv_any
+        for b in blocks[1:]:
+            kv_keep = kv_keep | b.kv_any
+        if self.scfg.ffn_sparsity:
+            ffn_crit = torch.cat([b.ffn_critical for b in blocks], -1)[..., :L]
+            ffn_lead = torch.cat([b.ffn_leader for b in blocks], -1)[..., :L]
+        else:
+            ffn_crit = torch.ones((B, L), dtype=torch.bool, device=xn.device)
+            ffn_lead = torch.arange(L, dtype=torch.int32,
+                                    device=xn.device).expand(B, L)
+        # attn_mask == mask & kv_keep[..., None, :] identically: a column a
+        # row's mask selects is by definition kept in that head
+        return SparsityPlan(attn_mask=mask, q_critical=q_crit,
+                            q_leader=q_lead, kv_keep=kv_keep,
+                            ffn_critical=ffn_crit, ffn_leader=ffn_lead)
+
+
+def build_block_plan_progressive(cfg, p: dict, xn: torch.Tensor,
+                                 row_block: Optional[int] = None
+                                 ) -> Optional[SparsityPlan]:
+    """Serving-mode SPLS plan of one block (``p["attn"]`` holds the
+    projection weights) from its normalized input; ``None`` when SPLS is
+    disabled."""
+    if not cfg.spls.enabled:
+        return None
+    return PlanContext.for_config(cfg).plan_progressive(p["attn"], xn,
+                                                        row_block)
+
+
+def progressive_plan_blocks(cfg, p: dict, xn: torch.Tensor,
+                            row_block: Optional[int] = None,
+                            votes_only: bool = False) -> Iterator:
+    """Iterate the progressive planner's row blocks for a full sequence
+    (see :meth:`PlanContext.iter_blocks`)."""
+    return PlanContext.for_config(cfg).iter_blocks(
+        p["attn"], xn, row_block=row_block, votes_only=votes_only)

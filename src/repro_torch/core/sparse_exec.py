@@ -1,22 +1,30 @@
-"""Execution of the formal computation under a SPLS plan: packing.
+"""Execution of the formal computation under a SPLS plan.
 
-Dynamic row counts become static capacities: critical rows are packed
-into a fixed-capacity buffer (stable order, critical first), computed
-densely at the reduced size, and read back through the leader map.  With
-capacity equal to the row count this is exactly the simulation-mode
-semantics (similar rows reuse their leader's output); below it, overflow
-rows fall back to their window leader.
+* **simulation** -- dense math with gather/mask semantics: similar rows
+  reuse their leader's attention / FFN output, pruned K/V columns get no
+  probability mass (:func:`spls_attention`, :func:`spls_ffn`).
+* **capacity** -- dynamic row counts become static capacities: critical
+  rows are packed into a fixed-capacity buffer (stable order, critical
+  first), computed densely at the reduced size, and read back through the
+  leader map (:func:`pack_by_mask`, :func:`unpack_by_leader`,
+  :func:`compact_rows`, :func:`spls_attention_chunked`,
+  :func:`spls_ffn_packed`).  With capacity equal to the row count this is
+  the simulation-mode row semantics; below it, overflow rows fall back to
+  their window leader.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-__all__ = ["gather_rows", "pack_by_mask", "Compaction", "compact_rows",
-           "masked_softmax"]
+from .spls import SparsityPlan
+
+__all__ = ["gather_rows", "pack_by_mask", "unpack_by_leader", "Compaction",
+           "compact_rows", "masked_softmax", "spls_attention",
+           "spls_attention_chunked", "spls_ffn", "spls_ffn_packed"]
 
 _NEG = -1e30
 
@@ -55,6 +63,13 @@ def pack_by_mask(mask: torch.Tensor, capacity: int
     C = min(capacity, L)
     order, order_pos = _pack_order(mask)
     return order[..., :C], torch.clamp(order_pos, max=C - 1)
+
+
+def unpack_by_leader(packed: torch.Tensor, slot_of: torch.Tensor,
+                     leader: torch.Tensor) -> torch.Tensor:
+    """Scatter packed rows back to full length through the leader map:
+    ``out[row] = packed[slot_of[leader[row]]]``."""
+    return gather_rows(packed, torch.gather(slot_of, -1, leader.long()))
 
 
 class Compaction(NamedTuple):
@@ -122,3 +137,113 @@ def masked_softmax(scores: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     m = scores.amax(-1, keepdim=True)
     e = torch.exp(scores - m) * mask.to(scores.dtype)
     return e / (e.sum(-1, keepdim=True) + 1e-9)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+def _softcap(s: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    return s if cap is None else torch.tanh(s / cap) * cap
+
+
+def spls_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   plan: SparsityPlan, scale: Optional[float] = None,
+                   softcap: Optional[float] = None) -> torch.Tensor:
+    """Simulation-mode sparse attention; q, k, v share their leading dims
+    with the plan's (``(B, KV, G, L, Dh)``).  A similar row's output is its
+    leader's (both the Q vector and the SPA mask row are the leader's);
+    pruned K/V columns receive no probability mass."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    L = plan.attn_mask.shape[-1]
+    lead = plan.q_leader.long()
+    q_eff = gather_rows(q, lead)
+    mask_eff = torch.gather(plan.attn_mask, -2,
+                            lead[..., None].expand(*lead.shape, L))
+    s = _softcap(torch.matmul(q_eff, k.transpose(-1, -2)) * scale, softcap)
+    return torch.matmul(masked_softmax(s, mask_eff), v)
+
+
+def spls_attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           plan, q_capacity: int, kv_capacity: int,
+                           scale: Optional[float] = None,
+                           softcap: Optional[float] = None,
+                           kv_chunk: int = 2048, causal: bool = True,
+                           window: Optional[int] = None) -> torch.Tensor:
+    """Capacity-mode sparse attention with an online softmax over packed
+    KV chunks.  q: (B, KV, G, L, Dh); k / v: (B, KV, L, Dh).  Critical Q
+    rows and surviving K/V columns are packed to static capacities; the
+    packed positions carry their original ids, so the causal and window
+    masks are index based.  No intra-row top-k mask: row and column
+    sparsity are what a tiled kernel realizes, which makes this the oracle
+    of the flash backends under a plan."""
+    B, KVp, Gp, L, Dh = q.shape
+    scale = scale if scale is not None else Dh ** -0.5
+    Cq, Ck = min(q_capacity, L), min(kv_capacity, L)
+    kv_chunk = min(kv_chunk, Ck)
+    q_perm, q_slot = pack_by_mask(plan.q_critical, Cq)
+    kv_perm, _ = pack_by_mask(plan.kv_keep, Ck)
+    qp = gather_rows(q, q_perm)                              # (B,K,G,Cq,D)
+    kr = k[:, :, None].expand(B, KVp, Gp, L, Dh)
+    vr = v[:, :, None].expand(B, KVp, Gp, L, Dh)
+    kp = gather_rows(kr, kv_perm)                            # (B,K,G,Ck,D)
+    vp = gather_rows(vr, kv_perm)
+    kv_alive = torch.gather(plan.kv_keep, -1, kv_perm.long())
+    pad = (-Ck) % kv_chunk
+    if pad:   # ragged capacity: dead padded columns keep the chunk grid
+        kp = F.pad(kp, (0, 0, 0, pad))
+        vp = F.pad(vp, (0, 0, 0, pad))
+        kv_perm = F.pad(kv_perm, (0, pad))
+        kv_alive = F.pad(kv_alive, (0, pad))
+        Ck += pad
+    qi = q_perm[..., :, None]
+    m_run = torch.full((B, KVp, Gp, Cq), _NEG, dtype=torch.float32,
+                       device=q.device)
+    l_run = torch.zeros_like(m_run)
+    acc = torch.zeros((B, KVp, Gp, Cq, Dh), dtype=torch.float32,
+                      device=q.device)
+    for c0 in range(0, Ck, kv_chunk):
+        k_c, v_c = kp[..., c0:c0 + kv_chunk, :], vp[..., c0:c0 + kv_chunk, :]
+        id_c = kv_perm[..., None, c0:c0 + kv_chunk]
+        s = torch.matmul(qp, k_c.transpose(-1, -2)).float() * scale
+        s = _softcap(s, softcap)
+        mask = kv_alive[..., None, c0:c0 + kv_chunk]
+        if causal:
+            mask = mask & (id_c <= qi)
+        if window is not None:
+            mask = mask & (qi - id_c < window)
+            if not causal:
+                mask = mask & (id_c - qi < window)
+        s = s.masked_fill(~mask, _NEG)
+        m_new = torch.maximum(m_run, s.amax(-1))
+        corr = torch.exp(m_run - m_new)
+        p = torch.exp(s - m_new[..., None]) * mask.float()
+        l_run = l_run * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.matmul(p.to(v_c.dtype),
+                                                   v_c).float()
+        m_run = m_new
+    op = (acc / l_run.clamp(min=1e-9)[..., None]).to(q.dtype)
+    return unpack_by_leader(op, q_slot, plan.q_leader)
+
+
+# ---------------------------------------------------------------------------
+# FFN
+# ---------------------------------------------------------------------------
+
+def spls_ffn(x: torch.Tensor, ffn_fn: Callable[[torch.Tensor], torch.Tensor],
+             plan: SparsityPlan) -> torch.Tensor:
+    """Simulation-mode sparse FFN: compute dense, recover similar tokens
+    from their MFI leader (x: (B, L, D))."""
+    return gather_rows(ffn_fn(x), plan.ffn_leader)
+
+
+def spls_ffn_packed(x: torch.Tensor,
+                    ffn_fn: Callable[[torch.Tensor], torch.Tensor],
+                    plan: SparsityPlan, capacity: int,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """Capacity-mode sparse FFN: pack critical tokens, compute, scatter;
+    with ``window``, overflow rows read their window leader's output
+    (:func:`compact_rows`)."""
+    comp = compact_rows(plan.ffn_critical, capacity, leader=plan.ffn_leader,
+                        window=window)
+    return gather_rows(ffn_fn(gather_rows(x, comp.perm)), comp.src_slot)

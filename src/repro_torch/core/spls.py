@@ -7,15 +7,20 @@ Pipeline (Fig. 5a of the paper):
   4. zero-column detection                -> K/V keep mask
   5. MFI vote across heads                -> FFN token sparsity
 
-Only the configuration lives here: the port builds plans through the
-streaming planner (:mod:`repro_torch.core.planner`).
+The output is a :class:`SparsityPlan` consumed by the execution layer
+(``sparse_exec.py``).  The port builds plans through the planner
+(:mod:`repro_torch.core.planner`): the streaming step and the progressive
+full-sequence plan; the exact one-shot ``build_plan`` is not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
-__all__ = ["SPLSConfig"]
+import torch
+
+__all__ = ["SPLSConfig", "SparsityPlan"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,3 +44,23 @@ class SPLSConfig:
     # Capacity-mode execution (static shapes); ratios of L.
     q_capacity_ratio: float = 1.0
     kv_capacity_ratio: float = 1.0
+
+
+class SparsityPlan(NamedTuple):
+    """Everything the formal computation phase needs; leading dims ``(B,
+    KV, G)`` (the structured head layout), ``L`` rows.
+
+    attn_mask:    (B, KV, G, L, L) bool  intra-row SPA mask.
+    q_critical:   (B, KV, G, L)    bool  rows whose attention row is computed.
+    q_leader:     (B, KV, G, L)    int32 attention-row recovery map.
+    kv_keep:      (B, KV, G, L)    bool  key/value positions that survive.
+    ffn_critical: (B, L)           bool  tokens whose FFN is computed.
+    ffn_leader:   (B, L)           int32 FFN output recovery map.
+    """
+
+    attn_mask: torch.Tensor
+    q_critical: torch.Tensor
+    q_leader: torch.Tensor
+    kv_keep: torch.Tensor
+    ffn_critical: torch.Tensor
+    ffn_leader: torch.Tensor

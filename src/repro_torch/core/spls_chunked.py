@@ -18,8 +18,8 @@ import torch
 from .mfi import mfi_ffn_sparsity
 from .similarity import local_similarity
 
-__all__ = ["CAUSAL_FILL", "ChunkPlanBlock", "plan_chunk", "bisect_topk_mask",
-           "votes_from_kv_any"]
+__all__ = ["CAUSAL_FILL", "ChunkPlanBlock", "plan_chunk", "plan_chunk_votes",
+           "bisect_topk_mask", "votes_from_kv_any"]
 
 # Causal / invalid-column fill for PAM blocks.  Must round-trip bfloat16
 # (bf16 max is ~3.39e38) and sit far below any real predicted score so the
@@ -88,6 +88,18 @@ def _block_pam_mask(qh_blk: torch.Tensor, kh: torch.Tensor, *, k, row0,
     mask = bisect_topk_mask(pam32, k)
     mask = mask & cmask & valid_rows[:, None]
     return mask, pam32
+
+
+def plan_chunk_votes(qh_blk: torch.Tensor, kh: torch.Tensor, *, k, row0,
+                     n_valid_rows, n_cols, causal: bool = True,
+                     scale: Optional[float] = None) -> torch.Tensor:
+    """Column-keep contribution only: ``(B, KV, G, S)`` bool.  The page-
+    prune vote needs just the zero-column detection, so the similarity
+    stage (the largest intermediate of a full block) is skipped."""
+    mask, _ = _block_pam_mask(qh_blk, kh, k=k, row0=row0,
+                              n_valid_rows=n_valid_rows, n_cols=n_cols,
+                              causal=causal, scale=scale)
+    return mask.any(dim=-2)
 
 
 def plan_chunk(qh_blk: torch.Tensor, kh: torch.Tensor, *, k, row0,

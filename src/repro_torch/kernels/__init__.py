@@ -9,8 +9,11 @@ CPU tensors; for CUDA tensors it launches the kernel or raises.
 from .gathered_matmul import (gather_rows, gather_rows_plain,
                               gathered_matmul, gathered_matmul_plain)
 from .paged_decode import paged_decode_plain, paged_flash_decode
+from .flash_attention import flash_attention, flash_attention_plain
+from .flash_decode import flash_decode, flash_decode_plain
 
-KERNELS = (gathered_matmul, gather_rows, paged_flash_decode)
+KERNELS = (gathered_matmul, gather_rows, paged_flash_decode,
+           flash_attention, flash_decode)
 
 
 def reset_launch_counts() -> None:
@@ -25,6 +28,7 @@ def launch_counts() -> dict:
 
 
 __all__ = ["gathered_matmul", "gather_rows", "paged_flash_decode",
-           "gathered_matmul_plain", "gather_rows_plain",
-           "paged_decode_plain", "KERNELS", "reset_launch_counts",
-           "launch_counts"]
+           "flash_attention", "flash_decode", "gathered_matmul_plain",
+           "gather_rows_plain", "paged_decode_plain",
+           "flash_attention_plain", "flash_decode_plain", "KERNELS",
+           "reset_launch_counts", "launch_counts"]

@@ -28,7 +28,9 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = _ROOT / "build" / "kernels"
 SOURCES = {"gathered_matmul": "gathered_matmul.cu",
            "gather_rows": "gather_rows.cu",
-           "paged_decode": "paged_decode.cu"}
+           "paged_decode": "paged_decode.cu",
+           "flash_attention": "flash_attention.cu",
+           "flash_decode": "flash_decode.cu"}
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

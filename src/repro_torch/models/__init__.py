@@ -5,13 +5,20 @@ bridge by a plain copy (:func:`repro_torch.weights.params_from_jax`).
 """
 
 from .common import apply_rope, rms_norm, rope_freqs, softcap
-from .attention import init_attention, output_proj, project_kv, project_qkv
+from .attention import (KVCache, attention_decode, attention_forward,
+                        init_attention, init_kv_cache, output_proj,
+                        project_kv, project_qkv)
 from .moe import ffn_forward, init_mlp, mlp_forward
-from .model import embed_inputs, head_logits, init_block, init_params
-from .attn_backend import get_backend, resolve_paged_backend
+from .blocks import block_decode, block_forward
+from .model import (decode_step, embed_inputs, forward, head_logits,
+                    init_block, init_cache, init_params, prefill)
+from .attn_backend import get_backend, resolve_backend, resolve_paged_backend
 
-__all__ = ["apply_rope", "rms_norm", "rope_freqs", "softcap",
-           "init_attention", "output_proj", "project_kv", "project_qkv",
-           "ffn_forward", "init_mlp", "mlp_forward", "embed_inputs",
-           "head_logits", "init_block", "init_params", "get_backend",
+__all__ = ["apply_rope", "rms_norm", "rope_freqs", "softcap", "KVCache",
+           "attention_decode", "attention_forward", "init_attention",
+           "init_kv_cache", "output_proj", "project_kv", "project_qkv",
+           "ffn_forward", "init_mlp", "mlp_forward", "block_decode",
+           "block_forward", "decode_step", "embed_inputs", "forward",
+           "head_logits", "init_block", "init_cache", "init_params",
+           "prefill", "get_backend", "resolve_backend",
            "resolve_paged_backend"]

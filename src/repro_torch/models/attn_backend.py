@@ -1,4 +1,39 @@
-"""Attention backend registry of the port: the paged-decode site.
+"""Attention backend registry of the port: forward, decode and paged-decode
+sites.
+
+Forward backends (whole sequence) share::
+
+    fn(cfg, q, k, v, *, window, plan, q_capacity, kv_capacity) -> o
+
+with ``q: (B, KV, G, L, Dh)``, ``k / v: (B, KV, L, Dh)``, ``o`` like ``q``.
+
+  * ``torch_dense``   -- materialized scores; with a plan, the simulation-
+    mode SPLS semantics (:func:`spls_attention`: leader-row recovery plus
+    the full intra-row SPA mask).
+  * ``torch_chunked`` -- KV-chunked online softmax; with a plan,
+    :func:`spls_attention_chunked` (packed rows and columns, index-based
+    masks, no intra-row mask): the oracle of the flash backends under a
+    plan.
+  * ``torch_flash`` / ``cuda_flash`` -- :func:`repro_torch.kernels.
+    flash_attention_plain` / the CUDA kernel :func:`repro_torch.kernels.
+    flash_attention`, with the SPLS plan lowered to block sparsity as the
+    reference's ``pallas_flash`` does: ``kv_keep`` feeds the kernel's keep
+    mask (dead K tiles are skipped), critical Q rows are packed to a
+    capacity rounded up to whole ``PALLAS_BLOCK_Q`` tiles, carried with
+    their original positions (``q_pos``) and scattered back through the
+    leader map.  The intra-row top-k mask is not applied.
+
+Decode backends (one token, contiguous cache) share::
+
+    fn(cfg, q, k, v, *, pos, window) -> o
+
+with ``q: (B, KV, G, Dh)``, ``k / v: (B, KV, S, Dh)``, ``pos: (B,)``.
+
+  * ``torch_dense_decode`` / ``torch_flash_decode`` -- one plain version,
+    :func:`repro_torch.kernels.flash_decode_plain` (dense masked softmax
+    over the whole cache).
+  * ``cuda_flash_decode`` -- the CUDA kernel :func:`repro_torch.kernels.
+    flash_decode`.
 
 Paged decode backends (the serving engine's block-pool KV cache) share::
 
@@ -8,38 +43,206 @@ Paged decode backends (the serving engine's block-pool KV cache) share::
 with ``q: (B, KV, G, Dh)``, ``k/v_pages: (KV, N, ps, Dh)``, ``pos_pages:
 (N, ps)``, ``tables: (B, P)``, ``kv_len / pos: (B,)``.
 
-  * ``torch_paged_decode`` -- the plain version: gather the block table
-    into a contiguous view, then dense masked softmax.
+  * ``torch_paged_decode`` -- gather the block table into a contiguous
+    view, then dense masked softmax.
   * ``cuda_paged_decode``  -- the CUDA kernel
     (:func:`repro_torch.kernels.paged_flash_decode`).
 
-The reference package's names are aliases (``xla_paged_decode`` ->
-``torch_paged_decode``, ``pallas_paged_decode`` -> ``cuda_paged_decode``),
-so one ``ServeConfig`` drives both packages.  ``"auto"`` resolves by the
-device of the tensors: the kernel on the card, the plain version on the
-CPU.  The forward (whole-prompt) and dense-decode sites wait for later
-slices (ROADMAP.md).
+The reference package's names are aliases (``xla_dense``,
+``xla_chunked``, ``pallas_flash``, ``xla_dense_decode``,
+``pallas_flash_decode``, ``xla_paged_decode``, ``pallas_paged_decode``),
+so one ``ServeConfig`` drives both packages.  ``xla_packed`` is not ported
+and raises.
+
+``"auto"`` resolves by the device of the tensors: the kernel on the card,
+its plain version on the CPU, at every site.  This is the one deliberate
+difference from the reference's ``resolve_backend``, which picks
+``xla_dense`` on a CPU -- a backend that keeps the intra-row top-k mask
+the flash path drops.  Here the CPU and the card compute the same
+function, and the CPU tests name the reference's backend explicitly.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Callable, Dict, Optional
 
 import torch
+import torch.nn.functional as F
 
-from repro_torch.kernels import paged_decode_plain, paged_flash_decode
+from repro_torch.core.sparse_exec import (gather_rows, pack_by_mask,
+                                          spls_attention,
+                                          spls_attention_chunked,
+                                          unpack_by_leader)
+from repro_torch.core.spls import SparsityPlan
+from repro_torch.kernels import (flash_attention, flash_attention_plain,
+                                 flash_decode, flash_decode_plain,
+                                 paged_decode_plain, paged_flash_decode)
 
-__all__ = ["AUTO", "PAGED_DECODE_BACKENDS", "resolve_paged_backend",
-           "get_backend", "site_backend"]
+from .common import softcap as _softcap
+
+__all__ = ["AUTO", "FORWARD_BACKENDS", "DECODE_BACKENDS",
+           "PAGED_DECODE_BACKENDS", "PALLAS_BLOCK_Q", "resolve_backend",
+           "resolve_paged_backend", "get_backend", "site_backend"]
 
 AUTO = "auto"
-_ALIASES = {"xla_paged_decode": "torch_paged_decode",
+KV_CHUNK = 2048
+# the reference's Pallas q tile: SPLS q packing rounds the capacity up to
+# it, whatever tile the CUDA kernel uses, so both packages pack the same rows
+PALLAS_BLOCK_Q = 128
+_ALIASES = {"xla_dense": "torch_dense", "xla_chunked": "torch_chunked",
+            "pallas_flash": "cuda_flash",
+            "xla_dense_decode": "torch_dense_decode",
+            "pallas_flash_decode": "cuda_flash_decode",
+            "xla_paged_decode": "torch_paged_decode",
             "pallas_paged_decode": "cuda_paged_decode"}
-# the reference's backends of other call sites: a ServeConfig naming one
-# of them leaves the paged-decode site on "auto", as the reference does
-_OTHER_SITES = ("xla_dense", "xla_packed", "xla_chunked", "pallas_flash",
-                "xla_dense_decode", "pallas_flash_decode")
+_UNPORTED = {"xla_packed": "Queue A, deferred item 11"}
 
+
+# ---------------------------------------------------------------------------
+# forward backends
+# ---------------------------------------------------------------------------
+
+def _band_mask(L: int, window: Optional[int], causal: bool,
+               device) -> torch.Tensor:
+    i = torch.arange(L, device=device)[:, None]
+    j = torch.arange(L, device=device)[None, :]
+    m = (j <= i) if causal else torch.ones((L, L), dtype=torch.bool,
+                                           device=device)
+    if window is not None:
+        m = m & (i - j < window) & (j - i < (1 if causal else window))
+    return m
+
+
+def _with_plan_kv(q, k, v):
+    B, KV, G, L, Dh = q.shape
+    return (k[:, :, None].expand(B, KV, G, L, Dh),
+            v[:, :, None].expand(B, KV, G, L, Dh))
+
+
+def _window_plan(plan: SparsityPlan, L: int, window: Optional[int],
+                 causal: bool) -> SparsityPlan:
+    """Intersect a block's sliding window into the plan's mask, so SPLS +
+    SWA means the same on every backend."""
+    if window is None:
+        return plan
+    return plan._replace(attn_mask=plan.attn_mask & _band_mask(
+        L, window, causal, plan.attn_mask.device))
+
+
+def torch_dense(cfg, q, k, v, *, window=None, plan=None, q_capacity=None,
+                kv_capacity=None) -> torch.Tensor:
+    L, Dh = q.shape[-2], q.shape[-1]
+    if plan is not None:
+        kr, vr = _with_plan_kv(q, k, v)
+        plan = _window_plan(plan, L, window, cfg.causal)
+        return spls_attention(q, kr, vr, plan, Dh ** -0.5, cfg.attn_softcap)
+    s = torch.einsum("bkgqd,bkld->bkgql", q, k) * Dh ** -0.5
+    s = _softcap(s, cfg.attn_softcap)
+    m = _band_mask(L, window, cfg.causal, q.device)
+    s = s.masked_fill(~m, -1e30)
+    a = torch.softmax(s.float(), dim=-1).to(q.dtype)
+    return torch.einsum("bkgql,bkld->bkgqd", a, v)
+
+
+def torch_chunked(cfg, q, k, v, *, window=None, plan=None, q_capacity=None,
+                  kv_capacity=None) -> torch.Tensor:
+    B, KV, G, L, Dh = q.shape
+    if plan is not None:
+        return spls_attention_chunked(q, k, v, plan, q_capacity or L,
+                                      min(kv_capacity or L, L), Dh ** -0.5,
+                                      cfg.attn_softcap, kv_chunk=KV_CHUNK,
+                                      causal=cfg.causal, window=window)
+    C = min(KV_CHUNK, L)
+    pad = (-L) % C
+    if pad:     # ragged tail: padded columns are masked by `kj < L`
+        k = F.pad(k, (0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, pad))
+    qi = torch.arange(L, device=q.device)[:, None]
+    m_run = torch.full((B, KV, G, L), -1e30, dtype=torch.float32,
+                       device=q.device)
+    l_run = torch.zeros_like(m_run)
+    acc = torch.zeros((B, KV, G, L, Dh), dtype=torch.float32,
+                      device=q.device)
+    for c0 in range(0, L + pad, C):
+        k_c, v_c = k[:, :, c0:c0 + C], v[:, :, c0:c0 + C]
+        s = torch.einsum("bkgqd,bkld->bkgql", q, k_c).float() * Dh ** -0.5
+        s = _softcap(s, cfg.attn_softcap)
+        kj = c0 + torch.arange(C, device=q.device)[None, :]
+        mask = (kj < L).expand(L, C)
+        if cfg.causal:
+            mask = mask & (kj <= qi)
+        if window is not None:
+            mask = mask & (qi - kj < window)
+            if not cfg.causal:
+                mask = mask & (kj - qi < window)
+        s = s.masked_fill(~mask, -1e30)
+        m_new = torch.maximum(m_run, s.amax(-1))
+        corr = torch.exp(m_run - m_new)
+        p = torch.exp(s - m_new[..., None]) * mask.float()
+        l_run = l_run * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bkgql,bkld->bkgqd", p.to(v_c.dtype), v_c).float()
+        m_run = m_new
+    return (acc / l_run.clamp(min=1e-9)[..., None]).to(q.dtype)
+
+
+def _flash(attn: Callable, cfg, q, k, v, window, plan, q_capacity):
+    """The reference's ``pallas_flash`` lowering around ``attn`` (the
+    kernel or its plain version)."""
+    B, KV, G, L, Dh = q.shape
+    H = KV * G
+    qf = q.reshape(B, H, L, Dh)
+    k, v = k.contiguous(), v.contiguous()
+    kw = dict(causal=cfg.causal, window=window, softcap=cfg.attn_softcap)
+    if plan is None:
+        return attn(qf.contiguous(), k, v, **kw).reshape(B, KV, G, L, Dh)
+    # SPLS plan -> block sparsity: kv_keep feeds the keep mask (dead K
+    # tiles skipped); critical Q rows are packed to a capacity rounded up
+    # to whole reference q tiles, carried with their original positions,
+    # and leader-recovered after the call
+    crit = plan.q_critical.reshape(B, H, L)
+    keep = plan.kv_keep.reshape(B, H, L).contiguous()
+    leader = plan.q_leader.reshape(B, H, L)
+    bq = min(PALLAS_BLOCK_Q, L)
+    Cq = min(q_capacity or L, L)
+    Cq = min(L, -(-Cq // bq) * bq)
+    q_perm, q_slot = pack_by_mask(crit, Cq)
+    qp = gather_rows(qf, q_perm)
+    op = attn(qp, k, v, kv_keep=keep, q_pos=q_perm.contiguous(), **kw)
+    return unpack_by_leader(op, q_slot, leader).reshape(B, KV, G, L, Dh)
+
+
+def torch_flash(cfg, q, k, v, *, window=None, plan=None, q_capacity=None,
+                kv_capacity=None) -> torch.Tensor:
+    return _flash(flash_attention_plain, cfg, q, k, v, window, plan,
+                  q_capacity)
+
+
+def cuda_flash(cfg, q, k, v, *, window=None, plan=None, q_capacity=None,
+               kv_capacity=None) -> torch.Tensor:
+    return _flash(flash_attention, cfg, q, k, v, window, plan, q_capacity)
+
+
+# ---------------------------------------------------------------------------
+# decode backends
+# ---------------------------------------------------------------------------
+
+def torch_flash_decode(cfg, q, k, v, *, pos, window=None) -> torch.Tensor:
+    return flash_decode_plain(q, k, v, pos.to(torch.int32),
+                              softcap=cfg.attn_softcap, window=window)
+
+
+def cuda_flash_decode(cfg, q, k, v, *, pos, window=None) -> torch.Tensor:
+    # the kernel takes a ragged S: no pad to the reference's block_k
+    return flash_decode(q.contiguous(), k.contiguous(), v.contiguous(),
+                        pos.to(torch.int32).contiguous(),
+                        softcap=cfg.attn_softcap, window=window)
+
+
+# ---------------------------------------------------------------------------
+# paged decode backends
+# ---------------------------------------------------------------------------
 
 def torch_paged_decode(cfg, q, k_pages, v_pages, *, pos_pages, tables,
                        kv_len, pos, window=None) -> torch.Tensor:
@@ -55,41 +258,82 @@ def cuda_paged_decode(cfg, q, k_pages, v_pages, *, pos_pages, tables,
                               window=window)
 
 
+FORWARD_BACKENDS: Dict[str, Callable] = {
+    "torch_dense": torch_dense, "torch_chunked": torch_chunked,
+    "torch_flash": torch_flash, "cuda_flash": cuda_flash}
+# one plain decode: the dense masked softmax over j <= pos (and the
+# window) is the flash kernel's plain version too
+DECODE_BACKENDS: Dict[str, Callable] = {
+    "torch_dense_decode": torch_flash_decode,
+    "torch_flash_decode": torch_flash_decode,
+    "cuda_flash_decode": cuda_flash_decode}
 PAGED_DECODE_BACKENDS: Dict[str, Callable] = {
     "torch_paged_decode": torch_paged_decode,
-    "cuda_paged_decode": cuda_paged_decode,
-}
+    "cuda_paged_decode": cuda_paged_decode}
+_SITES = {"forward": FORWARD_BACKENDS, "decode": DECODE_BACKENDS,
+          "paged_decode": PAGED_DECODE_BACKENDS}
+# auto: (on the card, on the CPU)
+_AUTO = {"forward": ("cuda_flash", "torch_flash"),
+         "decode": ("cuda_flash_decode", "torch_flash_decode"),
+         "paged_decode": ("cuda_paged_decode", "torch_paged_decode")}
 
 
-def site_backend(name: Optional[str]) -> str:
-    """Route a ``ServeConfig.attn_backend`` name to the paged-decode site:
-    a paged-decode name (or alias) stays, a name of another site becomes
-    ``"auto"``, an unknown name raises."""
+def _canonical(name: str) -> str:
+    if name in _UNPORTED:
+        raise NotImplementedError(
+            f"attention backend {name!r} is not ported yet (ROADMAP.md, "
+            f"{_UNPORTED[name]})")
+    return _ALIASES.get(name, name)
+
+
+def _site_of(name: str) -> str:
+    for site, reg in _SITES.items():
+        if name in reg:
+            return site
+    known = sorted(set().union(*_SITES.values()))
+    raise ValueError(f"unknown attention backend {name!r}; registered: "
+                     f"{known} (aliases {sorted(_ALIASES)})")
+
+
+def site_backend(name: Optional[str], site: str = "paged_decode") -> str:
+    """Route an ``attn_backend`` name to one call site (``"forward"``,
+    ``"decode"`` or ``"paged_decode"``).  One config field drives every
+    site an engine has: a name of this site (or its alias) is taken, a
+    name of another site leaves this site on ``"auto"``, an unknown name
+    raises."""
     if name is None or name == AUTO:
         return AUTO
-    name = _ALIASES.get(name, name)
-    if name in PAGED_DECODE_BACKENDS:
-        return name
-    if name in _OTHER_SITES:
-        return AUTO
-    raise ValueError(f"unknown attention backend {name!r}; paged-decode "
-                     f"backends: {sorted(PAGED_DECODE_BACKENDS)} (aliases "
-                     f"{sorted(_ALIASES)})")
+    name = _canonical(name)
+    return name if _site_of(name) == site else AUTO
 
 
-def resolve_paged_backend(name: Optional[str], device: torch.device) -> str:
-    """Concrete paged-decode backend for tensors on ``device``."""
-    name = site_backend(name)
-    if name == AUTO:
-        return ("cuda_paged_decode" if torch.device(device).type == "cuda"
-                else "torch_paged_decode")
-    return name
+def resolve_backend(name: Optional[str], device,
+                    site: str = "forward") -> str:
+    """Concrete backend of ``site`` for tensors on ``device``.  A name of
+    another site falls back to this site's auto choice with a
+    ``RuntimeWarning`` (Python shows it once per name and site), as in the
+    reference, so a mistyped override cannot silently run another
+    backend."""
+    routed = site_backend(name, site)
+    if routed == AUTO and name not in (None, AUTO):
+        warnings.warn(f"configured attention backend {name!r} is a "
+                      f"{_site_of(_canonical(name))} backend but this is a "
+                      f"{site} site; falling back to the auto choice for "
+                      f"this site", RuntimeWarning, stacklevel=2)
+    if routed == AUTO:
+        on_card, on_cpu = _AUTO[site]
+        return on_card if torch.device(device).type == "cuda" else on_cpu
+    return routed
+
+
+def resolve_paged_backend(name: Optional[str], device) -> str:
+    """Concrete paged-decode backend for tensors on ``device``; a name of
+    another site resolves ``"auto"`` without a warning (the paged engine's
+    one config field also names its forward backend)."""
+    name = site_backend(name, "paged_decode")
+    return resolve_backend(name, device, "paged_decode")
 
 
 def get_backend(name: str) -> Callable:
-    try:
-        return PAGED_DECODE_BACKENDS[_ALIASES.get(name, name)]
-    except KeyError:
-        raise ValueError(f"unknown paged-decode backend {name!r}; "
-                         f"registered: {sorted(PAGED_DECODE_BACKENDS)}"
-                         ) from None
+    name = _canonical(name)
+    return _SITES[_site_of(name)][name]

@@ -1,0 +1,130 @@
+"""Transformer blocks with SPLS: whole-sequence forward and one-token
+decode (attention mixer only).
+
+A block is (pre-norm -> attention -> residual) + optional (pre-norm ->
+FFN -> residual), with optional post-norms.  With SPLS on, the plan is
+built from the *normalized block input* and the attention projection
+weights -- prediction before QKV generation, as in the paper's Fig. 5a --
+then attention and the FFN execute under it.  Plan construction lives in
+the planner (:mod:`repro_torch.core.planner`); this module selects the
+plan and executes under it.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.core.planner import build_block_plan_progressive
+from repro_torch.core.sparse_exec import (compact_rows, spls_ffn,
+                                          spls_ffn_packed)
+from repro_torch.sparse_compute import (is_packed, packed_mlp,
+                                        resolve_compute_backend)
+
+from .attention import attention_decode, attention_forward
+from .common import rms_norm
+from .moe import ffn_forward
+
+__all__ = ["block_forward", "block_decode", "build_block_plan_progressive"]
+
+
+def _capacities(cfg, L: int) -> Tuple[Optional[int], Optional[int]]:
+    s = cfg.spls
+    qc = None if s.q_capacity_ratio >= 1.0 else max(
+        s.window, math.ceil(s.q_capacity_ratio * L))
+    kc = None if s.kv_capacity_ratio >= 1.0 else max(
+        s.window, math.ceil(s.kv_capacity_ratio * L))
+    return qc, kc
+
+
+def _attn_only(blk) -> None:
+    if blk.mixer != "attn":
+        raise NotImplementedError(
+            "Mamba blocks are not ported yet (ROADMAP.md, Queue A item 10)")
+
+
+def block_forward(cfg, blk, p: dict, x: torch.Tensor,
+                  cache_len: Optional[int] = None,
+                  attn_backend: Optional[str] = None,
+                  plan_mode: str = "auto"):
+    """Whole-sequence block.  x: (B, L, D).
+
+    With ``cache_len`` (prefill) also returns the block's
+    :class:`~repro_torch.models.attention.KVCache`.  ``plan_mode=
+    "progressive"`` builds the SPLS plan with the streaming-reproducible
+    planner (what the serving engines use); ``"auto"`` with SPLS on needs
+    the exact and scan plans, which are not ported.
+    """
+    _attn_only(blk)
+    xn = rms_norm(x, p["ln1"], cfg.norm_eps)
+    plan = None
+    if plan_mode == "progressive":
+        plan = build_block_plan_progressive(cfg, p, xn)
+    elif plan_mode != "auto":
+        raise ValueError(f"unknown plan_mode {plan_mode!r}")
+    elif cfg.spls.enabled:
+        raise NotImplementedError(
+            "plan_mode='auto' with SPLS builds the exact / scan plans "
+            "(plan_exact, plan_scan), which are not ported yet (ROADMAP.md, "
+            "Queue A, deferred item 10); use plan_mode='progressive'")
+    qc, kc = _capacities(cfg, x.shape[1]) if plan is not None \
+        else (None, None)
+    h = attention_forward(cfg, p["attn"], xn, window=blk.window, plan=plan,
+                          q_capacity=qc, kv_capacity=kc, cache_len=cache_len,
+                          backend=attn_backend)
+    cache = None
+    if cache_len is not None:
+        h, cache = h
+    if cfg.use_post_norm:
+        h = rms_norm(h, p["post_ln1"], cfg.norm_eps)
+    x = x + h
+
+    if blk.has_ffn:
+        xn2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+        fn = lambda t: ffn_forward(cfg, blk.use_moe, p["ffn"], t)
+        if plan is not None and cfg.spls.ffn_sparsity:
+            if qc is not None:
+                # capacity mode: the compute backend decides how the packed
+                # rows execute (MoE keeps its own routing as the pack)
+                cb = resolve_compute_backend(cfg.compute_backend,
+                                             sparse=True, device=x.device)
+                if is_packed(cb) and not blk.use_moe:
+                    comp = compact_rows(plan.ffn_critical, qc,
+                                        leader=plan.ffn_leader,
+                                        window=cfg.spls.window)
+                    h2 = packed_mlp(cfg, p["ffn"], xn2, comp, cb)
+                else:
+                    h2 = spls_ffn_packed(xn2, fn, plan, qc,
+                                         window=cfg.spls.window)
+            else:
+                h2 = spls_ffn(xn2, fn, plan)
+        else:
+            h2 = fn(xn2)
+        if cfg.use_post_norm:
+            h2 = rms_norm(h2, p["post_ln2"], cfg.norm_eps)
+        x = x + h2
+    if cache_len is not None:
+        return x, cache
+    return x
+
+
+def block_decode(cfg, blk, p: dict, x: torch.Tensor, cache, pos: torch.Tensor,
+                 attn_backend: Optional[str] = None):
+    """One-token decode.  x: (B, 1, D); the cache is updated in place.
+    Returns ``(x, cache)``."""
+    _attn_only(blk)
+    xn = rms_norm(x, p["ln1"], cfg.norm_eps)
+    h, cache = attention_decode(cfg, p["attn"], xn, cache, pos,
+                                window=blk.window, backend=attn_backend)
+    if cfg.use_post_norm:
+        h = rms_norm(h, p["post_ln1"], cfg.norm_eps)
+    x = x + h
+    if blk.has_ffn:
+        xn2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+        h2 = ffn_forward(cfg, blk.use_moe, p["ffn"], xn2)
+        if cfg.use_post_norm:
+            h2 = rms_norm(h2, p["post_ln2"], cfg.norm_eps)
+        x = x + h2
+    return x, cache

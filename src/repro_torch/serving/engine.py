@@ -1,18 +1,25 @@
-"""The paged serving engine: continuous batching over the block pool.
+"""Serving engines: dense fixed-slot and block-pool paged.
+
+:class:`ServingEngine` is the reference's baseline and parity oracle: a
+dense ``n_slots x max_len`` KV cache, whole-prompt prefill into a free
+slot (:func:`repro_torch.models.prefill`, the flash backends), one batched
+decode per tick (:func:`repro_torch.models.decode_step`, the flash-decode
+backends).
 
 :class:`PagedServingEngine` keeps KV in a shared
 :class:`~repro_torch.serving.pager.PagePool`; requests hold block tables
-instead of cache rows, prompts prefill in chunks *between* decode ticks
-(no head-of-line blocking), admission is keyed on free pages, and a dry
-pool preempts the youngest sequence by page eviction.  With SPLS, each
-chunk carries its slice of the progressive sparsity plan, Q and the FFN
-run only on critical rows (packed compute), and the end-of-prefill prune
-vote compacts kept KV columns so the paper's sparsity buys pool capacity.
+instead of cache rows, admission is keyed on free pages, and a dry pool
+preempts the youngest sequence by page eviction.  A causal model prefills
+in chunks *between* decode ticks (no head-of-line blocking): with SPLS,
+each chunk carries its slice of the progressive sparsity plan, Q and the
+FFN run only on critical rows (packed compute), and the end-of-prefill
+prune vote compacts kept KV columns so the paper's sparsity buys pool
+capacity.  A non-causal model (the paper's BERT-Base encoder) cannot be
+chunked: it prefills each prompt whole through ``prefill`` and the flash
+backends, and the layer-0 prune vote decides which columns reach the pool.
 
-This slice of the port serves the reference's main path: SPLS on, packed
-compute, the end-of-prefill prune vote, greedy sampling.  The other
-configurations raise ``NotImplementedError`` naming the ROADMAP.md item
-that ports them.
+Both engines sample greedily.  Configurations not ported yet raise
+``NotImplementedError`` naming the ROADMAP.md item that ports them.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import warnings
+from collections import deque
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -27,18 +35,19 @@ import torch
 
 from repro_torch.core.topk import topk_count
 from repro_torch.device import resolve_device
-from repro_torch.models.attn_backend import site_backend
+from repro_torch.models import decode_step, init_cache, prefill
+from repro_torch.models.attn_backend import AUTO, site_backend
 from repro_torch.observability import Telemetry, tree_bytes
 from repro_torch.sparse_compute import (CapacityController, chunk_flops,
                                         is_packed, resolve_compute_backend)
 
 from .pager import (NULL_PAGE, PagePool, init_paged_cache, init_pos_pages,
-                    init_pred_cache, keep_from_votes)
+                    init_pred_cache, keep_from_votes, spls_token_votes)
 from .paged_model import (compact_slots, paged_decode_step,
-                          paged_prefill_chunk_spls)
+                          paged_prefill_chunk_spls, scatter_prefill)
 from .scheduler import Scheduler, SchedulerConfig, SeqState
 
-__all__ = ["Request", "ServeConfig", "PagedServingEngine"]
+__all__ = ["Request", "ServeConfig", "ServingEngine", "PagedServingEngine"]
 
 
 @dataclasses.dataclass
@@ -61,7 +70,10 @@ class ServeConfig:
     greedy: bool = True
     temperature: float = 1.0
     seed: int = 0
-    # paged-decode backend (None = cfg/auto); reference names are aliases
+    # attention backend (None = cfg/auto; reference names are aliases):
+    # it drives the engine site it names -- prefill the forward site, ticks
+    # the (paged) decode site -- and every other site takes the model
+    # config's attn_backend (see _site_cfg)
     attn_backend: Optional[str] = None
     page_size: int = 16
     n_pages: Optional[int] = None   # None -> n_slots * pages(max_len) + 1
@@ -88,9 +100,182 @@ def _prompt_tokens(prompt) -> List[int]:
 
 def _unsupported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, {item}); this slice serves "
-        f"SPLS with packed compute, the end-of-prefill prune vote and "
-        f"greedy sampling")
+        f"{what} is not ported yet (ROADMAP.md, {item}); the port serves "
+        f"greedy sampling, whole-prompt prefill, and chunked prefill with "
+        f"SPLS, packed compute and the end-of-prefill prune vote")
+
+
+def _check_greedy(scfg) -> None:
+    if not scfg.greedy:
+        raise _unsupported("temperature sampling (greedy=False)",
+                           "Queue A, deferred item 5")
+
+
+def _validated_tokens(req, vocab: int, max_len: int) -> List[int]:
+    tokens = _prompt_tokens(req.prompt)
+    lp = len(tokens)
+    if lp == 0:
+        raise ValueError(f"request {req.rid}: empty prompt")
+    if lp > max_len:
+        raise ValueError(f"request {req.rid}: prompt {lp} exceeds "
+                         f"max_len {max_len}")
+    if min(tokens) < 0 or max(tokens) >= vocab:
+        raise ValueError(f"request {req.rid}: token ids must lie in "
+                         f"[0, {vocab})")
+    return tokens
+
+
+def _site_cfg(cfg, scfg, site: str):
+    """``cfg`` with ``attn_backend`` routed to one site of the engine: the
+    ServeConfig's name where it names this site, else the model config's
+    (or "auto").  So ``ServeConfig.attn_backend`` pins one site and
+    ``cfg.attn_backend`` another; the reference leaves the other site on
+    "auto" whenever the ServeConfig names a backend."""
+    name = site_backend(scfg.attn_backend, site)
+    if name == AUTO:
+        name = site_backend(cfg.attn_backend, site)
+    return dataclasses.replace(cfg, attn_backend=name)
+
+
+# ---------------------------------------------------------------------------
+# dense fixed-slot engine (the baseline / parity oracle)
+# ---------------------------------------------------------------------------
+
+class ServingEngine:
+    """Continuous batching over a dense ``n_slots x max_len`` KV cache.
+
+    ``device=None`` runs on the card and raises without one (pass
+    ``device="cpu"`` to run on the CPU); ``params`` move to the device.
+    """
+
+    def __init__(self, cfg, params, scfg: ServeConfig,
+                 device: Optional[str] = None):
+        self.device = resolve_device(device)
+        if cfg.input_mode != "tokens":
+            raise ValueError("the engine serves token models")
+        _check_greedy(scfg)
+        # the dense engine has no packed-compute path (it is the
+        # simulation-mode parity oracle): say so instead of silently
+        # measuring dense compute
+        if is_packed(resolve_compute_backend(
+                scfg.compute_backend if scfg.compute_backend is not None
+                else cfg.compute_backend, sparse=cfg.spls.enabled,
+                device=self.device)):
+            warnings.warn(
+                "ServingEngine (dense fixed-slot) executes dense compute "
+                "only; the configured packed compute_backend applies to "
+                "PagedServingEngine's chunked SPLS prefill and is ignored "
+                "here", RuntimeWarning, stacklevel=2)
+        if scfg.vote_horizon is not None:
+            warnings.warn(
+                "ServingEngine prefills whole prompts with the "
+                "end-of-prefill prune vote; vote_horizon applies to "
+                "PagedServingEngine's chunked SPLS prefill and is ignored "
+                "here", RuntimeWarning, stacklevel=2)
+        self.cfg, self.scfg = cfg, scfg
+        self._cfg_fwd = _site_cfg(cfg, scfg, "forward")
+        self._cfg_dec = _site_cfg(cfg, scfg, "decode")
+        # SPLS configs prefill with the progressive (streaming-
+        # reproducible) plan, as the reference's engines do
+        self._plan_mode = "progressive" if cfg.spls.enabled else "auto"
+        self.params = _to_device(params, self.device)
+        self.telemetry = Telemetry(enabled=scfg.telemetry)
+        self.queue: deque = deque()
+        self.slots: List[Optional[Request]] = [None] * scfg.n_slots
+        self.pos = np.zeros((scfg.n_slots,), np.int32)
+        self.tokens = np.zeros((scfg.n_slots, 1), np.int32)
+        self.cache = init_cache(cfg, scfg.n_slots, scfg.max_len,
+                                device=self.device)
+        self._retired: List[Request] = []
+
+    @property
+    def stats(self) -> dict:
+        """Minimal stats view (the paged engine carries the full set);
+        dense compute executes everything, so savings are all zero."""
+        return {"retired": len(self._retired), "compute_backend": "dense",
+                "flops_saved_pct": {}}
+
+    def submit(self, req: Request) -> None:
+        tokens = _validated_tokens(req, self.cfg.vocab_size,
+                                   self.scfg.max_len)
+        self.telemetry.request_submitted(req.rid, len(tokens))
+        self.queue.append((req, tokens))
+
+    def _admit(self) -> None:
+        """Move queued requests into free slots (prefill their prompt)."""
+        for s in range(self.scfg.n_slots):
+            if self.slots[s] is not None or not self.queue:
+                continue
+            req, tokens = self.queue.popleft()
+            self.telemetry.request_admitted(req.rid)
+            toks = torch.tensor([tokens], dtype=torch.int32,
+                                device=self.device)
+            self.telemetry.span_begin("full_prefill", rid=req.rid)
+            logits, cache1 = prefill(self._cfg_fwd, self.params, toks,
+                                     max_len=self.scfg.max_len,
+                                     plan_mode=self._plan_mode)
+            # splice this row's prefilled cache into slot s, in place
+            for full, one in zip(self.cache, cache1):
+                full.k[:, s:s + 1].copy_(one.k)
+                full.v[:, s:s + 1].copy_(one.v)
+            nxt = int(torch.argmax(logits[0, -1]))
+            req.output.append(nxt)
+            self.telemetry.span_end("full_prefill", rid=req.rid)
+            self.telemetry.first_token(req.rid)
+            self.slots[s] = req
+            self.pos[s] = len(tokens)
+            self.tokens[s, 0] = nxt
+
+    def _retire(self) -> None:
+        for s, req in enumerate(self.slots):
+            if req is None:
+                continue
+            hit_eos = req.eos_id is not None and req.eos_id in req.output
+            if len(req.output) >= req.max_new_tokens or hit_eos or \
+                    int(self.pos[s]) >= self.scfg.max_len - 1:
+                req.done = True
+                self.slots[s] = None
+                self._retired.append(req)
+                self.telemetry.request_retired(req.rid)
+
+    def tick(self) -> int:
+        """One engine iteration; returns the number of slots decoded."""
+        self._admit()
+        self._retire()  # a prefill-emitted token may already hit eos/budget
+        active = [s for s, r in enumerate(self.slots) if r is not None]
+        if not active:
+            return 0
+        self.telemetry.span_begin("decode_tick",
+                                  args={"n_active": len(active)})
+        logits, _ = decode_step(
+            self._cfg_dec, self.params, self.cache,
+            torch.as_tensor(self.tokens).to(self.device),
+            torch.as_tensor(self.pos).to(self.device))
+        nxt = logits[:, 0].argmax(dim=-1).tolist()
+        for s in active:
+            self.slots[s].output.append(int(nxt[s]))
+        self.telemetry.span_end("decode_tick")
+        self.telemetry.tokens_decoded([self.slots[s].rid for s in active])
+        for s in active:
+            self.pos[s] += 1
+        self.tokens[:, 0] = nxt
+        self._retire()
+        return len(active)
+
+    def run_until_drained(self, max_ticks: int = 10000) -> List[Request]:
+        """Tick until queue and slots are empty; returns the requests that
+        retired during this call, in retirement order."""
+        start = len(self._retired)
+        for _ in range(max_ticks):
+            self.tick()
+            if not self.queue and all(s is None for s in self.slots):
+                break
+        return self._retired[start:]
+
+
+# ---------------------------------------------------------------------------
+# paged engine
+# ---------------------------------------------------------------------------
 
 
 class PagedServingEngine:
@@ -108,48 +293,51 @@ class PagedServingEngine:
         if not all(b.mixer == "attn" for b in cfg.period):
             raise ValueError("the paged engine is attention-only (SSM state "
                              "is O(1) per slot)")
-        if not cfg.causal:
-            raise _unsupported("whole-prompt prefill (non-causal models)",
-                               "Queue A, deferred item 1")
-        if not cfg.spls.enabled:
-            raise _unsupported("serving without SPLS (the non-SPLS chunk "
-                               "step)", "Queue A, deferred item 2")
-        if not scfg.spls_page_prune:
-            raise _unsupported("SPLS serving without page pruning",
-                               "Queue A, deferred item 2")
+        _check_greedy(scfg)
         if scfg.vote_horizon is not None:
             raise _unsupported("vote_horizon", "Queue A, deferred item 3")
-        if not scfg.greedy:
-            raise _unsupported("temperature sampling (greedy=False)",
-                               "Queue A, deferred item 5")
-        if scfg.prefill_chunk % cfg.spls.window:
-            if scfg.auto_align_chunk:
-                aligned = -(-scfg.prefill_chunk // cfg.spls.window) \
-                    * cfg.spls.window
-                warnings.warn(
-                    f"prefill_chunk ({scfg.prefill_chunk}) is not a "
-                    f"multiple of the SPLS similarity window "
-                    f"({cfg.spls.window}); auto_align_chunk rounded it up "
-                    f"to {aligned}", RuntimeWarning, stacklevel=2)
-                scfg = dataclasses.replace(scfg, prefill_chunk=aligned)
-            else:
-                raise ValueError(
-                    f"prefill_chunk ({scfg.prefill_chunk}) must be a "
-                    f"multiple of the SPLS similarity window "
-                    f"({cfg.spls.window}): chunk boundaries must align "
-                    f"with similarity windows for chunked prefill to "
-                    f"reproduce the full-prefill plan (set "
-                    f"ServeConfig.auto_align_chunk=True to round up)")
+        # chunked prefill needs causal cross-chunk attention; a non-causal
+        # model prefills each prompt whole (and never uses the chunk
+        # path's compute backend, so any backend is accepted)
+        self._chunkable = cfg.causal
+        if self._chunkable and not cfg.spls.enabled:
+            raise _unsupported("chunked serving without SPLS (the non-SPLS "
+                               "chunk step)", "Queue A, deferred item 2")
+        if self._chunkable and not scfg.spls_page_prune:
+            raise _unsupported("SPLS serving without page pruning",
+                               "Queue A, deferred item 2")
         self._compute = resolve_compute_backend(
             scfg.compute_backend if scfg.compute_backend is not None
-            else cfg.compute_backend, sparse=True, device=self.device)
-        if not is_packed(self._compute):
-            raise _unsupported(
-                f"compute backend {self._compute!r} (simulation-mode "
-                f"compute)", "Queue A, deferred item 2")
-        self._attn_backend = site_backend(
-            scfg.attn_backend if scfg.attn_backend is not None
-            else cfg.attn_backend)
+            else cfg.compute_backend, sparse=cfg.spls.enabled,
+            device=self.device)
+        if self._chunkable:
+            if not is_packed(self._compute):
+                raise _unsupported(
+                    f"compute backend {self._compute!r} (simulation-mode "
+                    f"compute)", "Queue A, deferred item 2")
+            if scfg.prefill_chunk % cfg.spls.window:
+                if scfg.auto_align_chunk:
+                    aligned = -(-scfg.prefill_chunk // cfg.spls.window) \
+                        * cfg.spls.window
+                    warnings.warn(
+                        f"prefill_chunk ({scfg.prefill_chunk}) is not a "
+                        f"multiple of the SPLS similarity window "
+                        f"({cfg.spls.window}); auto_align_chunk rounded it "
+                        f"up to {aligned}", RuntimeWarning, stacklevel=2)
+                    scfg = dataclasses.replace(scfg, prefill_chunk=aligned)
+                else:
+                    raise ValueError(
+                        f"prefill_chunk ({scfg.prefill_chunk}) must be a "
+                        f"multiple of the SPLS similarity window "
+                        f"({cfg.spls.window}): chunk boundaries must align "
+                        f"with similarity windows for chunked prefill to "
+                        f"reproduce the full-prefill plan (set "
+                        f"ServeConfig.auto_align_chunk=True to round up)")
+        self._prune = cfg.spls.enabled and scfg.spls_page_prune
+        self._attn_backend = _site_cfg(cfg, scfg,
+                                       "paged_decode").attn_backend
+        self._cfg_fwd = _site_cfg(cfg, scfg, "forward")
+        self._plan_mode = "progressive" if cfg.spls.enabled else "auto"
         self.cfg, self.scfg = cfg, scfg
         self.params = _to_device(params, self.device)
 
@@ -160,18 +348,24 @@ class PagedServingEngine:
                    else scfg.n_slots * self.pages_per_seq + 1)
         self.pool = PagePool(n_pages, ps)
         cs = scfg.prefill_chunk
-        self._cap_q = CapacityController(cs, buckets=scfg.capacity_buckets,
-                                         margin=scfg.capacity_margin)
-        self._cap_f = CapacityController(cs, buckets=scfg.capacity_buckets,
-                                         margin=scfg.capacity_margin)
+        self._cap_q = self._cap_f = None
+        if is_packed(self._compute):
+            self._cap_q = CapacityController(
+                cs, buckets=scfg.capacity_buckets,
+                margin=scfg.capacity_margin)
+            self._cap_f = CapacityController(
+                cs, buckets=scfg.capacity_buckets,
+                margin=scfg.capacity_margin)
         self.telemetry = Telemetry(enabled=scfg.telemetry)
         self.sched = Scheduler(
             SchedulerConfig(n_slots=scfg.n_slots,
                             prefill_chunk=scfg.prefill_chunk,
                             max_prefills_per_tick=scfg.max_prefills_per_tick,
                             watermark=scfg.watermark),
-            self.pool, scfg.max_len, chunkable=True, prune_aware=True,
-            # packed compute routes every prompt through the chunk path
+            self.pool, scfg.max_len, chunkable=self._chunkable,
+            prune_aware=self._prune,
+            # packed compute routes every prompt of a causal model through
+            # the chunk path (the scheduler ignores it when not chunkable)
             chunk_all=True, telemetry=self.telemetry)
 
         self.cache = init_paged_cache(cfg, n_pages, ps, self.device)
@@ -187,29 +381,23 @@ class PagedServingEngine:
     def stats(self) -> dict:
         """Scheduler counters, pool gauges and capacity-controller
         snapshots, assembled fresh per read."""
-        return {**self.sched.stats,
-                "pages_in_use": self.pool.pages_in_use,
-                "peak_pages": self.pool.peak_in_use,
-                "free_pages": self.pool.free_pages,
-                "guard_trips": self.pool.guard_trips,
-                "compute_backend": self._compute,
-                "flops_saved_pct": self.sched.flops_saved_pct(),
-                "capacity_q": self._cap_q.snapshot(),
-                "capacity_ffn": self._cap_f.snapshot()}
+        out = {**self.sched.stats,
+               "pages_in_use": self.pool.pages_in_use,
+               "peak_pages": self.pool.peak_in_use,
+               "free_pages": self.pool.free_pages,
+               "guard_trips": self.pool.guard_trips,
+               "compute_backend": self._compute,
+               "flops_saved_pct": self.sched.flops_saved_pct()}
+        if self._cap_q is not None:
+            out["capacity_q"] = self._cap_q.snapshot()
+            out["capacity_ffn"] = self._cap_f.snapshot()
+        return out
 
     def submit(self, req: Request) -> None:
-        tokens = _prompt_tokens(req.prompt)
-        lp = len(tokens)
-        if lp == 0:
-            raise ValueError(f"request {req.rid}: empty prompt")
-        if lp > self.scfg.max_len:
-            raise ValueError(f"request {req.rid}: prompt {lp} exceeds "
-                             f"max_len {self.scfg.max_len}")
-        if min(tokens) < 0 or max(tokens) >= self.cfg.vocab_size:
-            raise ValueError(f"request {req.rid}: token ids must lie in "
-                             f"[0, {self.cfg.vocab_size})")
+        tokens = _validated_tokens(req, self.cfg.vocab_size,
+                                   self.scfg.max_len)
         self.sched.submit(req, tokens, req.max_new_tokens)
-        self.telemetry.request_submitted(req.rid, lp)
+        self.telemetry.request_submitted(req.rid, len(tokens))
 
     # ------------------------------------------------------------------
     def _table_row(self, st: SeqState) -> np.ndarray:
@@ -219,6 +407,51 @@ class PagedServingEngine:
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a)).to(self.device)
+
+    def _dest_slots(self, st: SeqState, n: int) -> np.ndarray:
+        """(n,) flat page-slot destinations for logical slots [0, n)."""
+        pages = np.asarray(st.pages, np.int64)
+        sl = np.arange(n)
+        return pages[sl // self.page_size] * self.page_size \
+            + sl % self.page_size
+
+    def _full_prefill(self, st: SeqState) -> None:
+        """Whole-prompt prefill (a non-causal model): ``prefill`` through
+        the forward backends, the layer-0 prune vote, and the kept columns
+        scattered into the sequence's pages."""
+        tel = self.telemetry
+        tel.span_begin("full_prefill", rid=st.req.rid,
+                       args={"prompt_len": st.prompt_len})
+        toks = self._tensor(np.asarray(st.tokens, np.int32))[None, :]
+        logits, dense_cache = prefill(self._cfg_fwd, self.params, toks,
+                                      plan_mode=self._plan_mode)
+        if self._prune:
+            votes = spls_token_votes(self.cfg, self.params, toks[0])
+            keep = keep_from_votes(votes.cpu().numpy(), self.cfg.n_heads,
+                                   self.scfg.spls_prune_vote)
+        else:
+            keep = np.ones((st.prompt_len,), bool)
+        keep_idx = np.nonzero(keep)[0]
+        n_kept = len(keep_idx)
+        if not self.sched.grow_to(st, n_kept):
+            # st itself was preempted (span unwound by the preempt/abort
+            # telemetry); prefill recomputes later
+            return
+        scatter_prefill(self.cache, self.pos_pages, dense_cache,
+                        self._tensor(keep_idx.astype(np.int32)),
+                        self._tensor(self._dest_slots(st, n_kept)))
+        st.kv_len = n_kept
+        st.cur_pos = st.prompt_len
+        st.prefilled = st.prompt_len
+        # whole-prompt prefill runs simulation-mode compute (packed
+        # capacities apply on the chunked path): charged dense == executed
+        self.sched.note_flops(chunk_flops(self.cfg, st.prompt_len,
+                                          st.prompt_len))
+        if self._prune:
+            self.sched.note_prune(st.prompt_len, n_kept)
+            tel.sparsity.note_prune(st.prompt_len, n_kept)
+        tel.span_end("full_prefill", rid=st.req.rid, args={"kept": n_kept})
+        self._emit_first(st, logits[0, -1])
 
     def _chunk_prefill(self, st: SeqState) -> None:
         tel = self.telemetry
@@ -313,7 +546,10 @@ class PagedServingEngine:
         for st in self.sched.plan_prefills():
             if self.sched.slots[st.slot] is not st:
                 continue  # preempted by an earlier prefill this tick
-            self._chunk_prefill(st)
+            if self.sched.use_chunks(st.prompt_len):
+                self._chunk_prefill(st)
+            else:
+                self._full_prefill(st)
         self._retire_finished()  # prefill-emitted token may hit eos/budget
 
         # grow pages for every decode-ready row (may preempt the youngest)

@@ -11,6 +11,8 @@
   Q and attention only on the cross-head union of critical rows, the FFN
   only on FFN-critical rows, leaders broadcasting to their followers.
 * :func:`compact_slots` -- the end-of-prefill prune compaction.
+* :func:`scatter_prefill` -- a whole-prompt prefill's kept KV columns
+  into pages.
 
 Where the reference threads caches through pure functions and donates the
 old buffers, these functions update the page pool, the predictor cache and
@@ -33,24 +35,16 @@ from repro_torch.models.attention import output_proj, project_kv, \
 from repro_torch.models.attn_backend import get_backend, \
     resolve_paged_backend
 from repro_torch.models.common import dtype_of, rms_norm, softcap
-from repro_torch.models.model import embed_inputs, head_logits
+from repro_torch.models.model import embed_inputs, head_logits, \
+    period_params
 from repro_torch.models.moe import ffn_forward
 from repro_torch.sparse_compute import is_packed, packed_mlp, \
     packed_project_q
 
 from .pager import POS_SENTINEL
 
-__all__ = ["paged_decode_step", "paged_prefill_chunk_spls", "compact_slots"]
-
-
-def _period_params(params, pi: int, dtype):
-    """Period ``pi``'s block params: views into the stacked leaves, cast to
-    the compute dtype (a no-op view when it already matches)."""
-    def one(t):
-        if isinstance(t, dict):
-            return {k: one(v) for k, v in t.items()}
-        return t[pi].to(dtype) if t.is_floating_point() else t[pi]
-    return tuple(one(bp) for bp in params["periods"])
+__all__ = ["paged_decode_step", "paged_prefill_chunk_spls", "compact_slots",
+           "scatter_prefill"]
 
 
 def _write_slots(pages: torch.Tensor, rows: torch.Tensor,
@@ -117,7 +111,7 @@ def paged_decode_step(cfg, params, cache, pos_pages: torch.Tensor,
     dtype = dtype_of(cfg.compute_dtype)
     x = embed_inputs(cfg, params, tokens)
     for pi in range(cfg.n_periods):
-        for blk, bp, kc in zip(cfg.period, _period_params(params, pi, dtype),
+        for blk, bp, kc in zip(cfg.period, period_params(params, pi, dtype),
                                cache):
             k_pages, v_pages = kc.k_pages[pi], kc.v_pages[pi]
             xn = rms_norm(x, bp["ln1"], cfg.norm_eps)
@@ -233,7 +227,7 @@ def paged_prefill_chunk_spls(cfg, params, cache, pred_cache,
     for pi in range(cfg.n_periods):
         cnt = torch.zeros(3, dtype=torch.int64, device=dev)
         for blk, bp, kc, pk in zip(cfg.period,
-                                   _period_params(params, pi, dtype),
+                                   period_params(params, pi, dtype),
                                    cache, pred_cache):
             k_pages, v_pages = kc.k_pages[pi], kc.v_pages[pi]
             codes_pg, scale_pg = pk.codes[pi], pk.scale[pi]
@@ -321,3 +315,22 @@ def compact_slots(cache, pos_pages: torch.Tensor, table: torch.Tensor,
             nP, KV, N_, ps_, Dh = pages.shape
             pf = pages.view(nP, KV, N_ * ps_, Dh)
             pf[:, :, flat] = pf[:, :, src]
+
+
+def scatter_prefill(cache, pos_pages: torch.Tensor, dense_cache,
+                    keep_idx: torch.Tensor, flat: torch.Tensor) -> None:
+    """Move a whole-prompt prefill's kept KV columns into pages, in place.
+
+    dense_cache: the per-block cache of :func:`repro_torch.models.prefill`
+    on a batch of one (``k / v (n_periods, 1, KV, S, Dh)``); keep_idx:
+    (n_kept,) original positions that survive SPLS pruning (all of them
+    without pruning); flat: (n_kept,) destination flat page slots.  The kept
+    columns land compacted and ``pos_pages`` records their original ids.
+    """
+    pos_pages.view(-1)[flat.long()] = keep_idx.to(torch.int32)
+    keep = keep_idx.long()
+    for pc, dc in zip(cache, dense_cache):
+        for pages, dense in ((pc.k_pages, dc.k), (pc.v_pages, dc.v)):
+            nP, KV, N, ps, Dh = pages.shape
+            pages.view(nP, KV, N * ps, Dh)[:, :, flat.long()] = \
+                dense[:, 0].index_select(2, keep).to(pages.dtype)

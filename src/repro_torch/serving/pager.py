@@ -26,11 +26,15 @@ from typing import List, NamedTuple, Optional
 import numpy as np
 import torch
 
-from repro_torch.models.common import dtype_of
+from repro_torch.core.planner import progressive_plan_blocks, \
+    votes_from_kv_any
+from repro_torch.models.common import dtype_of, rms_norm
+from repro_torch.models.model import embed_inputs, period_params
 
 __all__ = ["NULL_PAGE", "POS_SENTINEL", "PagedKVCache", "PredKCache",
            "PagePool", "init_paged_cache", "init_pos_pages",
-           "init_pred_cache", "keep_from_votes"]
+           "init_pred_cache", "keep_from_votes", "spls_token_votes",
+           "spls_token_keep"]
 
 NULL_PAGE = 0
 # pos_pages filler for never-written slots.  Correctness never rests on it:
@@ -167,3 +171,34 @@ def keep_from_votes(votes: np.ndarray, n_heads: int,
     keep = np.array(np.asarray(votes) >= need)
     keep[-1] = True
     return keep
+
+
+def spls_token_votes(cfg, params, prompt: torch.Tensor) -> torch.Tensor:
+    """(Lp,) int32 head votes for keeping each prompt KV column.
+
+    The SPLS prediction (HLog PAM -> bisection top-k -> zero-column
+    detection) on the layer-0 normalized input, through the planner's
+    progressive plan over window-aligned row blocks (never a dense Lp x
+    Lp plan); counts how many of the H = KV * G heads retain each column.
+    The votes equal what the streaming chunk step accumulates chunk by
+    chunk, for any chunking.
+    """
+    blk0 = period_params(params, 0, dtype_of(cfg.compute_dtype))[0]
+    x = embed_inputs(cfg, params, prompt[None, :])
+    xn = rms_norm(x, blk0["ln1"], cfg.norm_eps)
+    kv_any = None
+    for blk in progressive_plan_blocks(cfg, blk0, xn, votes_only=True):
+        kv_any = blk if kv_any is None else (kv_any | blk)
+    return votes_from_kv_any(kv_any)
+
+
+def spls_token_keep(cfg, params, prompt: torch.Tensor,
+                    vote: float = 0.5) -> np.ndarray:
+    """(Lp,) bool keep mask for prompt KV columns: a token keeps its page
+    slot iff at least ``ceil(vote * H)`` heads retain its column (the last
+    token always).  All True when SPLS is disabled."""
+    Lp = int(prompt.shape[0])
+    if not cfg.spls.enabled:
+        return np.ones((Lp,), bool)
+    votes = spls_token_votes(cfg, params, prompt)
+    return keep_from_votes(votes.cpu().numpy(), cfg.n_heads, vote)

@@ -151,7 +151,8 @@ def test_cpu_tensors_take_the_plain_version():
     np.testing.assert_array_equal(n(K.paged_flash_decode(*inp)),
                                   n(K.paged_decode_plain(*inp)))
     assert K.launch_counts() == {"gathered_matmul": 0, "gather_rows": 0,
-                                 "paged_flash_decode": 0}
+                                 "paged_flash_decode": 0,
+                                 "flash_attention": 0, "flash_decode": 0}
 
 
 def test_other_devices_raise():

@@ -1,14 +1,14 @@
 """The port's PagedServingEngine against the reference's on bridged
 weights: equal greedy tokens and equal scheduler outcomes (peak pages,
 preemptions, prefill chunks, FLOPs saved), with random and repeated-token
-prompts over several chunks, and under a pool small enough to preempt.
+prompts over several chunks, under a pool small enough to preempt, and for
+a non-causal model (whole-prompt prefill).
 Also: entry points refuse to guess a device, unsupported configurations
 name their ROADMAP item, and the port imports neither jax nor repro."""
 
 from __future__ import annotations
 
 import ast
-import dataclasses
 from pathlib import Path
 
 import jax  # noqa: F401  (both frameworks load in every parity test)
@@ -96,6 +96,35 @@ def test_engine_matches_reference_under_preemption():
     assert out[1].stats["preemptions"] > 0
 
 
+def test_non_causal_engine_matches_reference():
+    """The paper's non-causal encoder: whole-prompt SPLS prefill through
+    the flash backends, the layer-0 prune vote into the pool, paged decode;
+    any compute backend is accepted (the whole-prompt path never uses
+    one)."""
+    jc, tc = cfg_pair("mha", spls=dict(causal=False), causal=False)
+    jp, tp = params_pair(jc)
+    TEngine(tc, tp, TServe(compute_backend="dense"), device="cpu")
+    prompts = _prompts(jc.vocab_size, (20, 12, 20, 12), seed=3, repeat=4)
+    kw = dict(n_slots=2, max_len=40, page_size=4, n_pages=17,
+              attn_backend="pallas_flash", compute_backend="packed_xla")
+    jeng = JEngine(jc, jp, JServe(**kw))
+    teng = TEngine(tc, tp, TServe(**kw), device="cpu")
+    jreqs = [JRequest(rid=i, prompt=jnp.asarray(p), max_new_tokens=5)
+             for i, p in enumerate(prompts)]
+    treqs = [TRequest(rid=i, prompt=p, max_new_tokens=5)
+             for i, p in enumerate(prompts)]
+    for eng, reqs in ((jeng, jreqs), (teng, treqs)):
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_drained(max_ticks=500)
+        assert all(r.done for r in reqs)
+    assert [r.output for r in treqs] == [r.output for r in jreqs]
+    for key in ("peak_pages", "preemptions", "prefill_chunks", "retired",
+                "admitted"):
+        assert teng.stats[key] == jeng.stats[key], key
+    assert teng.stats["prefill_chunks"] == 0          # every prompt whole
+
+
 def test_default_device_is_the_card():
     jc, tc = cfg_pair("mha")
     _, tp = params_pair(jc)
@@ -115,9 +144,6 @@ def test_unported_configurations_raise(change, item):
     _, tp = params_pair(jc)
     with pytest.raises(NotImplementedError, match=item):
         TEngine(tc, tp, TServe(**change), device="cpu")
-    with pytest.raises(NotImplementedError, match="deferred item 1"):
-        TEngine(dataclasses.replace(tc, causal=False), tp, TServe(),
-                device="cpu")
 
 
 def test_submit_validates_prompts():
