@@ -1,11 +1,18 @@
-"""The SPLS planner: the streaming plan step and the progressive plan.
+"""The SPLS planner: one owner of the predictor state behind every plan.
 
 :class:`PlanContext` owns the quantized predictor state -- the head
 layout, the HLog prediction, and the int8 code encoding of the paged
-predictor cache -- and emits plan blocks through
-:func:`repro_torch.core.spls_chunked.plan_chunk`.  Two ways of planning
-sit on it:
+predictor cache -- and emits plans through it:
 
+* **exact** -- :meth:`PlanContext.plan_exact`: full PAM, exact top-k,
+  per-tensor quantization -- the paper's Fig. 5a as one shot, and what
+  ``block_forward(plan_mode="auto")`` builds below
+  ``models.blocks._SPLS_CHUNK_THRESHOLD`` (:func:`build_block_plan`);
+* **long sequence** -- :meth:`PlanContext.plan_scan`: the same numerics
+  one row block at a time (:func:`~repro_torch.core.spls_chunked.
+  chunked_plan_scan`), O(row_block * L) peak, a plan-lite
+  :class:`~repro_torch.core.spls_chunked.ChunkedPlan`
+  (:func:`build_block_plan_chunked`);
 * **streaming serving** -- :meth:`PlanContext.encode_pred_qk` /
   :meth:`PlanContext.decode_pred_k` / :meth:`PlanContext.plan_block`,
   driven one chunk at a time by
@@ -16,9 +23,8 @@ sit on it:
   per-token quantization): what a whole-prompt prefill builds, and
   exactly what the streaming step reproduces chunk by chunk.
 
-Only the structured head layout is ported.  The exact and scan plans
-(``plan_exact``, ``plan_scan``) and the horizon-finalized vote
-(``vote_horizon``) wait for later work (ROADMAP.md, Queue A).
+Only the structured head layout is ported.  The horizon-finalized vote
+(``vote_horizon``) waits for later work (ROADMAP.md, Queue A).
 """
 
 from __future__ import annotations
@@ -32,12 +38,15 @@ import torch.nn.functional as F
 from .predict import predict_qk, predict_qk_pre
 from .quantizers import PROJECTORS, symmetric_quantize
 from .spls import SPLSConfig, SparsityPlan
-from .spls_chunked import (ChunkPlanBlock, plan_chunk, plan_chunk_votes,
-                           votes_from_kv_any)
-from .topk import topk_count
+from .mfi import mfi_ffn_sparsity
+from .similarity import local_similarity
+from .spls_chunked import (ChunkedPlan, ChunkPlanBlock, chunked_plan_scan,
+                           plan_chunk, plan_chunk_votes, votes_from_kv_any)
+from .topk import kv_keep_from_mask, sparsify_pam, topk_count
 
-__all__ = ["PlanContext", "build_block_plan_progressive",
-           "progressive_plan_blocks", "votes_from_kv_any"]
+__all__ = ["PlanContext", "build_block_plan", "build_block_plan_chunked",
+           "build_block_plan_progressive", "progressive_plan_blocks",
+           "votes_from_kv_any"]
 
 
 def _progressive_row_block(L: int, w: int) -> int:
@@ -92,7 +101,8 @@ class PlanContext:
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Quantized prediction on the normalized block input -> ``(qh (B,
         KV, G, L, Dh), kh (B, KV, L, Dh))``.  ``act_axis=-1`` is the
-        streaming-reproducible numerics (per-token scales)."""
+        streaming-reproducible numerics (per-token scales); ``None`` the
+        offline per-tensor variant of the exact and scan plans."""
         wq, wk = self._weights2d(p)
         qp, kp = predict_qk(xn, wq, wk, self.scfg.quant_method,
                             self.scfg.quant_bits, act_axis=act_axis)
@@ -206,6 +216,84 @@ class PlanContext:
         return SparsityPlan(attn_mask=mask, q_critical=q_crit,
                             q_leader=q_lead, kv_keep=kv_keep,
                             ffn_critical=ffn_crit, ffn_leader=ffn_lead)
+
+
+    def plan_scan(self, p: dict, xn: torch.Tensor,
+                  row_block: Optional[int] = None) -> ChunkedPlan:
+        """Long-sequence plan: per-tensor prediction, then the row-block
+        loop of :func:`chunked_plan_scan` -- O(row_block * L) peak, plan-
+        lite output (no O(L^2) mask)."""
+        L = xn.shape[1]
+        qh, kh = self.predict_heads(p, xn, act_axis=None)
+        scfg = self.scfg
+        return chunked_plan_scan(
+            qh, kh, k_ratio=scfg.k_ratio, s_threshold=scfg.s_threshold,
+            window=scfg.window, f_threshold=scfg.f_threshold,
+            row_block=row_block or self.row_block_for(L),
+            causal=scfg.causal)
+
+    def exact_spa(self, p: dict, xn: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The exact plan's first stages: per-tensor prediction, the full
+        scaled PAM (causal fill ``finfo.min / 2``), exact row top-k.
+        Returns ``(spa, mask)``, both ``(B, KV, G, L, L)``; the masked-out
+        causal entries are cleared from both."""
+        L = xn.shape[1]
+        qh, kh = self.predict_heads(p, xn, act_axis=None)
+        pam = torch.matmul(qh, kh[:, :, None].transpose(-1, -2)) \
+            * self.Dh ** -0.5
+        tri = None
+        if self.scfg.causal:
+            tri = torch.ones((L, L), dtype=torch.bool,
+                             device=xn.device).tril()
+            pam = pam.masked_fill(~tri, torch.finfo(pam.dtype).min / 2)
+        spa, mask = sparsify_pam(pam, self.scfg.k_ratio)
+        if tri is not None:
+            mask = mask & tri
+            spa = torch.where(mask, spa, torch.zeros_like(spa))
+        return spa, mask
+
+    def plan_exact(self, p: dict, xn: torch.Tensor) -> SparsityPlan:
+        """Offline exact plan: full PAM, exact top-k, per-tensor
+        quantization -- the accuracy-study numerics (the paper's Fig. 5a
+        as one shot), MFI across all ``KV * G`` heads.  Not streaming-
+        reproducible."""
+        scfg = self.scfg
+        B, L, _ = xn.shape
+        spa, mask = self.exact_spa(p, xn)
+        sim = local_similarity(spa, scfg.window, scfg.s_threshold)
+        kv_keep = kv_keep_from_mask(mask)
+        if scfg.ffn_sparsity:
+            leaders = sim.leader.reshape(B, self.KV * self.G, L)
+            ffn = mfi_ffn_sparsity(leaders, scfg.window, scfg.f_threshold)
+            ffn_crit, ffn_leader = ffn.is_critical, ffn.leader
+        else:
+            ffn_crit = torch.ones((B, L), dtype=torch.bool, device=xn.device)
+            ffn_leader = torch.arange(L, dtype=torch.int32,
+                                      device=xn.device).expand(B, L)
+        return SparsityPlan(attn_mask=mask & kv_keep[..., None, :],
+                            q_critical=sim.is_critical, q_leader=sim.leader,
+                            kv_keep=kv_keep, ffn_critical=ffn_crit,
+                            ffn_leader=ffn_leader)
+
+
+def build_block_plan(cfg, p: dict, xn: torch.Tensor
+                     ) -> Optional[SparsityPlan]:
+    """Exact-top-k SPLS plan of one block (``p["attn"]`` holds the
+    projection weights) from its normalized input, before QKV generation;
+    ``None`` when SPLS is disabled."""
+    if not cfg.spls.enabled:
+        return None
+    return PlanContext.for_config(cfg).plan_exact(p["attn"], xn)
+
+
+def build_block_plan_chunked(cfg, p: dict, xn: torch.Tensor) -> ChunkedPlan:
+    """Long-sequence plan of one block: :meth:`PlanContext.plan_scan` with
+    row blocks of ``min(512, L)`` rows (at least one window)."""
+    ctx = PlanContext.for_config(cfg)
+    L = xn.shape[1]
+    return ctx.plan_scan(p["attn"], xn,
+                         row_block=max(ctx.scfg.window, min(512, L)))
 
 
 def build_block_plan_progressive(cfg, p: dict, xn: torch.Tensor,

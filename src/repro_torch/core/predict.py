@@ -2,8 +2,11 @@
 
 The activations X and the weights W_Q, W_K are HLog-quantized, the
 predicted Q'/K' are formed, re-quantized to 8 bits and HLog-quantized
-again; the serving planner multiplies them into the Predicted Attention
-Matrix one chunk at a time (:mod:`repro_torch.core.spls_chunked`).
+again, and multiplied into the Predicted Attention Matrix: whole by
+:func:`predicted_attention` (the exact plan), one chunk at a time by the
+serving planner (:mod:`repro_torch.core.spls_chunked`).  The CUDA kernel
+:func:`repro_torch.kernels.hlog_qmatmul` computes the first-stage product
+on the integer codes (:func:`repro_torch.kernels.ops.predict_matmul`).
 """
 
 from __future__ import annotations
@@ -14,7 +17,16 @@ import torch
 
 from .quantizers import quantize_dequantize
 
-__all__ = ["predict_qk", "predict_qk_pre"]
+__all__ = ["predict_qk", "predict_qk_pre", "predicted_attention",
+           "split_heads"]
+
+
+def split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """(..., L, D) -> (..., H, L, Dh)."""
+    *lead, L, D = x.shape
+    if D % n_heads:
+        raise ValueError(f"D={D} not divisible by n_heads={n_heads}")
+    return x.reshape(*lead, L, n_heads, D // n_heads).transpose(-2, -3)
 
 
 def predict_qk(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
@@ -44,3 +56,29 @@ def predict_qk_pre(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
     k_pre = xq @ quantize_dequantize(wk, method, bits)
     q_pred = quantize_dequantize(q_pred, method, bits, axis=act_axis)
     return q_pred, k_pre
+
+
+def predicted_attention(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
+                        n_heads: int, method: str = "hlog", bits: int = 8,
+                        causal: bool = False, scale: Optional[float] = None,
+                        n_kv_heads: Optional[int] = None) -> torch.Tensor:
+    """Full PAM: (..., H, L, L) predicted scores (pre-softmax), per-tensor
+    scales.  ``causal=True`` fills the strict upper triangle with
+    ``finfo.min / 2`` so top-k never selects a future position; with
+    ``n_kv_heads < n_heads`` (GQA) each predicted K head is broadcast
+    across its query group, giving a per-*query*-head PAM."""
+    qp, kp = predict_qk(x, wq, wk, method, bits)
+    qh = split_heads(qp, n_heads)
+    n_kv = n_kv_heads or n_heads
+    kh = split_heads(kp, n_kv)
+    if n_kv != n_heads:
+        kh = kh.repeat_interleave(n_heads // n_kv, dim=-3)
+    dh = qh.shape[-1]
+    s = scale if scale is not None else \
+        1.0 / torch.sqrt(torch.tensor(dh, dtype=qh.dtype))
+    pam = torch.matmul(qh, kh.transpose(-1, -2)) * s
+    if causal:
+        L = pam.shape[-1]
+        tri = torch.ones((L, L), dtype=torch.bool, device=pam.device).tril()
+        pam = pam.masked_fill(~tri, torch.finfo(pam.dtype).min / 2)
+    return pam

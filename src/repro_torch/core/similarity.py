@@ -42,7 +42,9 @@ def windowed_l1(spa: torch.Tensor, w: int, eps: float = 1e-6) -> torch.Tensor:
     if pad:
         spa = F.pad(spa, (0, 0, 0, pad))
     xp = spa.reshape(*lead, nw, w, Lk)
-    diff = (xp[..., :, None, :] - xp[..., None, :, :]).abs().sum(-1)
+    # abs in place: the pairwise difference is the largest intermediate of
+    # a plan (O(rows * w * Lk)), and a second copy of it would double peak
+    diff = (xp[..., :, None, :] - xp[..., None, :, :]).abs_().sum(-1)
     norm = xp.abs().sum(-1)
     denom = norm[..., :, None] + norm[..., None, :] + eps
     return (diff / denom).to(torch.float32)

@@ -7,6 +7,10 @@ each prefill chunk (a multiple of the similarity window ``w``) emits one
 :class:`ChunkPlanBlock` against every column seen so far -- its intra-row
 top-k mask, its per-window critical/leader structure, its OR into the K/V
 column-keep vote, and its MFI votes for FFN sparsity.
+
+:func:`chunked_plan_scan` drives the same block over a whole long
+sequence and keeps only the plan-lite fields (:class:`ChunkedPlan`, no
+O(L^2) mask): its peak is O(row_block * L) per head.
 """
 
 from __future__ import annotations
@@ -17,9 +21,11 @@ import torch
 
 from .mfi import mfi_ffn_sparsity
 from .similarity import local_similarity
+from .topk import topk_count
 
-__all__ = ["CAUSAL_FILL", "ChunkPlanBlock", "plan_chunk", "plan_chunk_votes",
-           "bisect_topk_mask", "votes_from_kv_any"]
+__all__ = ["CAUSAL_FILL", "ChunkedPlan", "ChunkPlanBlock", "plan_chunk",
+           "plan_chunk_votes", "bisect_topk_mask", "chunked_plan_scan",
+           "votes_from_kv_any"]
 
 # Causal / invalid-column fill for PAM blocks.  Must round-trip bfloat16
 # (bf16 max is ~3.39e38) and sit far below any real predicted score so the
@@ -137,3 +143,53 @@ def votes_from_kv_any(kv_any: torch.Tensor) -> torch.Tensor:
     which the vote is the head count."""
     B, S = kv_any.shape[0], kv_any.shape[-1]
     return kv_any.reshape(B, -1, S).sum(dim=1).to(torch.int32)[0]
+
+
+class ChunkedPlan(NamedTuple):
+    """Plan-lite for long-sequence execution (no O(L^2) mask); leading
+    head dims ``(B, KV, G)`` match the attention layout."""
+
+    q_critical: torch.Tensor    # (B, KV, G, L) bool
+    q_leader: torch.Tensor      # (B, KV, G, L) int32
+    kv_keep: torch.Tensor       # (B, KV, G, L) bool
+    ffn_critical: torch.Tensor  # (B, L) bool
+    ffn_leader: torch.Tensor    # (B, L) int32
+
+
+def chunked_plan_scan(qh: torch.Tensor, kh: torch.Tensor, *, k_ratio: float,
+                      s_threshold: float, window: int, f_threshold: int,
+                      row_block: int = 512, causal: bool = True,
+                      scale: Optional[float] = None) -> ChunkedPlan:
+    """Build the plan from predicted (already quantized) heads ``qh (B,
+    KV, G, L, Dh)`` / ``kh (B, KV, L, Dh)``, one row block of the PAM at a
+    time; peak memory O(row_block * L) per head instead of O(L^2).
+
+    Each step is one :func:`plan_chunk` -- the primitive the streaming
+    step and the progressive plan share -- and only its plan-lite fields
+    leave the loop; the K/V keep mask carries across blocks as an OR.  MFI
+    is window-local and row blocks are window multiples, so the per-block
+    FFN structure concatenates into exactly the whole-sequence vote.
+    """
+    B, KVp, Gp, L, Dh = qh.shape
+    if L % row_block or row_block % window:
+        raise ValueError(f"L ({L}) must be a multiple of row_block "
+                         f"({row_block}), and row_block of the window "
+                         f"({window})")
+    k = topk_count(L, k_ratio)
+    kv_keep = torch.zeros((B, KVp, Gp, L), dtype=torch.bool,
+                          device=qh.device)
+    crit, lead, fcrit, flead = [], [], [], []
+    for r0 in range(0, L, row_block):
+        pb = plan_chunk(qh[..., r0:r0 + row_block, :], kh, k=k, row0=r0,
+                        n_valid_rows=row_block, n_cols=L,
+                        s_threshold=s_threshold, window=window,
+                        f_threshold=f_threshold, causal=causal, scale=scale)
+        kv_keep |= pb.kv_any
+        crit.append(pb.q_critical)
+        lead.append(pb.q_leader)
+        fcrit.append(pb.ffn_critical)
+        flead.append(pb.ffn_leader)
+    return ChunkedPlan(q_critical=torch.cat(crit, -1),
+                       q_leader=torch.cat(lead, -1), kv_keep=kv_keep,
+                       ffn_critical=torch.cat(fcrit, -1),
+                       ffn_leader=torch.cat(flead, -1))

@@ -4,6 +4,8 @@ versions and launch counters.
 Sources live in ``repro_torch/csrc/`` and build with ``nvcc`` at first use
 (:mod:`._build`).  Each wrapper takes its plain PyTorch version only for
 CPU tensors; for CUDA tensors it launches the kernel or raises.
+:mod:`.ops` holds the reference's public entry points over them
+(``predict_matmul``, ``attention``, ``window_distances``).
 """
 
 from .gathered_matmul import (gather_rows, gather_rows_plain,
@@ -11,9 +13,13 @@ from .gathered_matmul import (gather_rows, gather_rows_plain,
 from .paged_decode import paged_decode_plain, paged_flash_decode
 from .flash_attention import flash_attention, flash_attention_plain
 from .flash_decode import flash_decode, flash_decode_plain
+from .hlog_qmatmul import hlog_qmatmul, hlog_qmatmul_plain
+from .local_similarity import local_similarity_dist, local_similarity_plain
+from . import ops
 
 KERNELS = (gathered_matmul, gather_rows, paged_flash_decode,
-           flash_attention, flash_decode)
+           flash_attention, flash_decode, hlog_qmatmul,
+           local_similarity_dist)
 
 
 def reset_launch_counts() -> None:
@@ -28,7 +34,9 @@ def launch_counts() -> dict:
 
 
 __all__ = ["gathered_matmul", "gather_rows", "paged_flash_decode",
-           "flash_attention", "flash_decode", "gathered_matmul_plain",
+           "flash_attention", "flash_decode", "hlog_qmatmul",
+           "local_similarity_dist", "gathered_matmul_plain",
            "gather_rows_plain", "paged_decode_plain",
-           "flash_attention_plain", "flash_decode_plain", "KERNELS",
+           "flash_attention_plain", "flash_decode_plain",
+           "hlog_qmatmul_plain", "local_similarity_plain", "ops", "KERNELS",
            "reset_launch_counts", "launch_counts"]

@@ -30,7 +30,9 @@ SOURCES = {"gathered_matmul": "gathered_matmul.cu",
            "gather_rows": "gather_rows.cu",
            "paged_decode": "paged_decode.cu",
            "flash_attention": "flash_attention.cu",
-           "flash_decode": "flash_decode.cu"}
+           "flash_decode": "flash_decode.cu",
+           "hlog_qmatmul": "hlog_qmatmul.cu",
+           "local_similarity": "local_similarity.cu"}
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -17,12 +17,13 @@ its seams.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Union
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core.spls import SparsityPlan
+from repro_torch.core.spls_chunked import ChunkedPlan
 
 from .attn_backend import get_backend, resolve_backend
 from .common import apply_rope, dense_init, rms_norm, rope_freqs
@@ -112,7 +113,7 @@ def output_proj(cfg, p: dict, o: torch.Tensor,
 
 def attention_forward(cfg, p: dict, x: torch.Tensor,
                       window: Optional[int] = None,
-                      plan: Optional[SparsityPlan] = None,
+                      plan: Optional[Union[SparsityPlan, ChunkedPlan]] = None,
                       q_capacity: Optional[int] = None,
                       kv_capacity: Optional[int] = None,
                       cache_len: Optional[int] = None,
@@ -126,7 +127,8 @@ def attention_forward(cfg, p: dict, x: torch.Tensor,
     B, L, _ = x.shape
     positions = torch.arange(L, device=x.device).expand(B, L)
     q, k, v = project_qkv(cfg, p, x, positions)
-    name = resolve_backend(backend or cfg.attn_backend, x.device, "forward")
+    name = resolve_backend(backend or cfg.attn_backend, x.device, "forward",
+                           plan)
     o = get_backend(name)(cfg, q, k, v, window=window, plan=plan,
                           q_capacity=q_capacity, kv_capacity=kv_capacity)
     out = output_proj(cfg, p, o)

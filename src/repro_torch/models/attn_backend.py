@@ -55,11 +55,16 @@ so one ``ServeConfig`` drives both packages.  ``xla_packed`` is not ported
 and raises.
 
 ``"auto"`` resolves by the device of the tensors: the kernel on the card,
-its plain version on the CPU, at every site.  This is the one deliberate
-difference from the reference's ``resolve_backend``, which picks
-``xla_dense`` on a CPU -- a backend that keeps the intra-row top-k mask
-the flash path drops.  Here the CPU and the card compute the same
-function, and the CPU tests name the reference's backend explicitly.
+its plain version on the CPU, at every site -- except that the forward
+site sends a long-sequence :class:`~repro_torch.core.spls_chunked.
+ChunkedPlan` to ``torch_chunked`` on both devices, as the reference sends
+it to ``xla_chunked`` even on a TPU (its only consumer with O(Cq *
+chunk) memory; no kernel serves that route in either package).  Choosing
+by device is the one deliberate difference from the reference's
+``resolve_backend``, which picks ``xla_dense`` on a CPU -- a backend that
+keeps the intra-row top-k mask the flash path drops.  Here the CPU and the
+card compute the same function, and the CPU tests name the reference's
+backend explicitly.
 """
 
 from __future__ import annotations
@@ -75,6 +80,7 @@ from repro_torch.core.sparse_exec import (gather_rows, pack_by_mask,
                                           spls_attention_chunked,
                                           unpack_by_leader)
 from repro_torch.core.spls import SparsityPlan
+from repro_torch.core.spls_chunked import ChunkedPlan
 from repro_torch.kernels import (flash_attention, flash_attention_plain,
                                  flash_decode, flash_decode_plain,
                                  paged_decode_plain, paged_flash_decode)
@@ -308,18 +314,21 @@ def site_backend(name: Optional[str], site: str = "paged_decode") -> str:
 
 
 def resolve_backend(name: Optional[str], device,
-                    site: str = "forward") -> str:
-    """Concrete backend of ``site`` for tensors on ``device``.  A name of
-    another site falls back to this site's auto choice with a
-    ``RuntimeWarning`` (Python shows it once per name and site), as in the
-    reference, so a mistyped override cannot silently run another
-    backend."""
+                    site: str = "forward", plan=None) -> str:
+    """Concrete backend of ``site`` for tensors on ``device`` (and, at the
+    forward site, the block's ``plan``).  A name of another site falls
+    back to this site's auto choice with a ``RuntimeWarning`` (Python
+    shows it once per name and site), as in the reference, so a mistyped
+    override cannot silently run another backend."""
     routed = site_backend(name, site)
     if routed == AUTO and name not in (None, AUTO):
         warnings.warn(f"configured attention backend {name!r} is a "
                       f"{_site_of(_canonical(name))} backend but this is a "
                       f"{site} site; falling back to the auto choice for "
                       f"this site", RuntimeWarning, stacklevel=2)
+    long_plan = isinstance(plan, ChunkedPlan)
+    if routed == AUTO and site == "forward" and long_plan:
+        return "torch_chunked"
     if routed == AUTO:
         on_card, on_cpu = _AUTO[site]
         return on_card if torch.device(device).type == "cuda" else on_cpu

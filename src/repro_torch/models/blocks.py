@@ -17,7 +17,10 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.core.planner import build_block_plan_progressive
+from repro_torch.core.planner import (build_block_plan,
+                                     build_block_plan_chunked,
+                                     build_block_plan_progressive,
+                                     progressive_plan_blocks)
 from repro_torch.core.sparse_exec import (compact_rows, spls_ffn,
                                           spls_ffn_packed)
 from repro_torch.sparse_compute import (is_packed, packed_mlp,
@@ -27,7 +30,13 @@ from .attention import attention_decode, attention_forward
 from .common import rms_norm
 from .moe import ffn_forward
 
-__all__ = ["block_forward", "block_decode", "build_block_plan_progressive"]
+__all__ = ["block_forward", "block_decode", "build_block_plan",
+           "build_block_plan_chunked", "build_block_plan_progressive",
+           "progressive_plan_blocks"]
+
+# at and above this length "auto" plans row block by row block (a
+# ChunkedPlan, no O(L^2) mask); below it, the exact plan
+_SPLS_CHUNK_THRESHOLD = 8192
 
 
 def _capacities(cfg, L: int) -> Tuple[Optional[int], Optional[int]]:
@@ -54,21 +63,20 @@ def block_forward(cfg, blk, p: dict, x: torch.Tensor,
     With ``cache_len`` (prefill) also returns the block's
     :class:`~repro_torch.models.attention.KVCache`.  ``plan_mode=
     "progressive"`` builds the SPLS plan with the streaming-reproducible
-    planner (what the serving engines use); ``"auto"`` with SPLS on needs
-    the exact and scan plans, which are not ported.
+    planner (what the serving engines use); ``"auto"`` builds the exact-
+    top-k plan, and at ``L >= _SPLS_CHUNK_THRESHOLD`` the row-block
+    :class:`~repro_torch.core.spls_chunked.ChunkedPlan`.
     """
     _attn_only(blk)
     xn = rms_norm(x, p["ln1"], cfg.norm_eps)
-    plan = None
     if plan_mode == "progressive":
         plan = build_block_plan_progressive(cfg, p, xn)
     elif plan_mode != "auto":
         raise ValueError(f"unknown plan_mode {plan_mode!r}")
-    elif cfg.spls.enabled:
-        raise NotImplementedError(
-            "plan_mode='auto' with SPLS builds the exact / scan plans "
-            "(plan_exact, plan_scan), which are not ported yet (ROADMAP.md, "
-            "Queue A, deferred item 10); use plan_mode='progressive'")
+    elif cfg.spls.enabled and x.shape[1] >= _SPLS_CHUNK_THRESHOLD:
+        plan = build_block_plan_chunked(cfg, p, xn)
+    else:
+        plan = build_block_plan(cfg, p, xn)
     qc, kc = _capacities(cfg, x.shape[1]) if plan is not None \
         else (None, None)
     h = attention_forward(cfg, p["attn"], xn, window=blk.window, plan=plan,

@@ -105,10 +105,9 @@ def period_params(params: Params, pi: int, dtype) -> tuple:
 
 
 def forward(cfg, params: Params, inputs: torch.Tensor) -> torch.Tensor:
-    """inputs: (B, L) int tokens -> logits (B, L, V).  With SPLS on this
-    needs the exact plan, which is not ported (``block_forward``
-    raises); serving goes through :func:`prefill` with the progressive
-    plan."""
+    """inputs: (B, L) int tokens -> logits (B, L, V).  With SPLS on, each
+    block runs under its exact-top-k plan (``plan_mode="auto"``; the
+    row-block plan from ``blocks._SPLS_CHUNK_THRESHOLD`` tokens on)."""
     dtype = dtype_of(cfg.compute_dtype)
     x = embed_inputs(cfg, params, inputs)
     for pi in range(cfg.n_periods):

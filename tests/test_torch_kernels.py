@@ -152,7 +152,9 @@ def test_cpu_tensors_take_the_plain_version():
                                   n(K.paged_decode_plain(*inp)))
     assert K.launch_counts() == {"gathered_matmul": 0, "gather_rows": 0,
                                  "paged_flash_decode": 0,
-                                 "flash_attention": 0, "flash_decode": 0}
+                                 "flash_attention": 0, "flash_decode": 0,
+                                 "hlog_qmatmul": 0,
+                                 "local_similarity_dist": 0}
 
 
 def test_other_devices_raise():

@@ -80,8 +80,12 @@ def test_plan_modes():
                                                          enabled=False)),
         pt, x) is None
     from repro_torch.models.blocks import block_forward
-    with pytest.raises(NotImplementedError, match="deferred item 10"):
-        block_forward(tc, tc.period[0], pt, x)          # plan_mode="auto"
+    # plan_mode="auto" builds the exact plan (its parity against the
+    # reference: test_torch_exact_plan.py); an unknown mode raises
+    out = block_forward(tc, tc.period[0], pt, x)
+    assert out.shape == x.shape and torch.isfinite(out).all()
+    with pytest.raises(ValueError, match="unknown plan_mode"):
+        block_forward(tc, tc.period[0], pt, x, plan_mode="exact")
 
 
 @pytest.mark.parametrize("kind,causal", CASES[:2])
