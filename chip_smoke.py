@@ -17,7 +17,10 @@ and nothing falls back to the CPU):
    tolerances; timed with CUDA events (warmed up, median of repeats,
    inputs rotated through more than the 50 MB L2 so every launch reads its
    operands from device memory) beside its plain version, one PyTorch
-   library call computing the same function, and its bound.
+   library call computing the same function, and its bound
+   (``gathered_matmul`` at the FFN and the Q projection's widths,
+   ``flash_attention`` at batch 1 and at path (d)'s batch 8); ptxas's
+   registers and spills of every kernel function.
 3. Serve: full-width BERT-Base (12 x 768, vocab 30522, random weights from
    a seed), 8 requests of 384 tokens, 16 new tokens each, on three paths:
    (a) the causal form through ``PagedServingEngine`` with SPLS chunked
@@ -54,6 +57,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -111,6 +115,28 @@ def _n_sets(bytes_per_set: int) -> int:
     return max(2, min(512, math.ceil(L2_ROTATE_BYTES / max(1, bytes_per_set))))
 
 
+def _ptxas(log: str) -> list:
+    """Each kernel function's registers and spill bytes from ``nvcc
+    -Xptxas -v`` output (the function named by its mangled name)."""
+    out, cur = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            cur = {"function": m.group(1)}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m and cur is not None:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+            out.append(cur)
+            cur = None
+    return out
+
+
 def _max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     torch.cuda.synchronize()
     return float((a.float() - b.float()).abs().max())
@@ -120,35 +146,14 @@ def _max_err(a: torch.Tensor, b: torch.Tensor) -> float:
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def check_gathered_matmul(K, gen) -> dict:
+def _time_gathered_matmul(K, gen, L, C, D, F) -> dict:
+    """Kernel, plain and library times of ``x[perm] @ w`` at one shape,
+    its tiling and its bound."""
+    from repro_torch.kernels.gathered_matmul import gmm_tiling
+
     dev = "cuda"
-    L, D = 64, 768
-    cases = []
-    for C in (16, 64):
-        for F in (768, 3072):
-            x = torch.randn(L, D, device=dev, generator=gen)
-            w = torch.randn(D, F, device=dev, generator=gen) * D ** -0.5
-            perm = torch.randint(0, L, (C,), device=dev, generator=gen,
-                                 dtype=torch.int32)
-            perm[C // 2:] = perm[:C - C // 2]          # repeated entries
-            src = torch.randint(0, C, (L,), device=dev, generator=gen,
-                                dtype=torch.int32)
-            for slot in (None, src):
-                got = K.gathered_matmul(x, w, perm, slot)
-                ref = K.gathered_matmul_plain(x, w, perm, slot)
-                err = _max_err(got, ref)
-                tol = 1e-6 * max(1.0, float(ref.abs().max()))
-                cases.append({"C": C, "F": F, "src_slot": slot is not None,
-                              "max_abs_err": err, "tolerance": tol})
-                if not err <= tol:
-                    _fail(f"gathered_matmul C={C} F={F} "
-                          f"src_slot={slot is not None}: max |err| {err} "
-                          f"> {tol}")
-    # timed at the FFN up-projection of a full 64-row bucket
-    C, F = 64, 3072
-    per_set = (L * D + D * F + C) * 4
     sets = []
-    for _ in range(_n_sets(per_set)):
+    for _ in range(_n_sets((L * D + D * F + C) * 4)):
         x = torch.randn(L, D, device=dev, generator=gen)
         w = torch.randn(D, F, device=dev, generator=gen) * D ** -0.5
         perm = torch.randint(0, L, (C,), device=dev, generator=gen,
@@ -157,18 +162,62 @@ def check_gathered_matmul(K, gen) -> dict:
     ms = _time_ms(K.gathered_matmul, sets)
     plain_ms = _time_ms(K.gathered_matmul_plain, sets)
     lib_ms = _time_ms(lambda x, w, p: x.index_select(0, p) @ w, sets)
-    flop_s = 2.0 * C * D * F / FP32_FLOPS
+    flop_s = 2.0 * C * D * F / FP64_FLOPS
     byte_s = (C * D + D * F + C * F) * 4 / HBM_BYTES_PER_S
+    bm, splits = gmm_tiling(C, F, D)
+    return {"shape": {"L": L, "C": C, "D": D, "F": F},
+            "tiling": {"bm": bm, "bn": 64, "splits": splits},
+            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": 1e3 * max(flop_s, byte_s),
+            "bound_by": "operations" if flop_s >= byte_s else "bytes"}
+
+
+def check_gathered_matmul(K, gen) -> dict:
+    dev = "cuda"
+    L = 64
+    cases = []
+    # the path's buckets and widths, then ragged D / F (a D that is no
+    # multiple of the K-slice; a D and F that are no multiple of 4)
+    shapes = [(C, 768, F) for C in (16, 64) for F in (768, 3072)]
+    shapes += [(40, 200, 100), (8, 77, 37)]
+    for C, D, F in shapes:
+        x = torch.randn(L, D, device=dev, generator=gen)
+        w = torch.randn(D, F, device=dev, generator=gen) * D ** -0.5
+        perm = torch.randint(0, L, (C,), device=dev, generator=gen,
+                             dtype=torch.int32)
+        perm[C // 2:] = perm[:C - C // 2]          # repeated entries
+        src = torch.randint(0, C, (L,), device=dev, generator=gen,
+                            dtype=torch.int32)
+        for slot in (None, src):
+            got = K.gathered_matmul(x, w, perm, slot)
+            ref = K.gathered_matmul_plain(x, w, perm, slot)
+            err = _max_err(got, ref)
+            tol = 1e-6 * max(1.0, float(ref.abs().max()))
+            cases.append({"C": C, "D": D, "F": F,
+                          "src_slot": slot is not None,
+                          "max_abs_err": err, "tolerance": tol})
+            if not err <= tol:
+                _fail(f"gathered_matmul C={C} D={D} F={F} "
+                      f"src_slot={slot is not None}: max |err| {err} "
+                      f"> {tol}")
+    # timed at the FFN up-projection and the Q projection of a full
+    # 64-row bucket
+    row = _time_gathered_matmul(K, gen, L, 64, 768, 3072)
+    q_shape = _time_gathered_matmul(K, gen, L, 64, 768, 768)
     return {"name": "gathered_matmul", "route": "cuda",
             "source": "src/repro_torch/csrc/gathered_matmul.cu",
             "replaces": "src/repro/kernels/gathered_matmul.py:138",
-            "shape": {"L": L, "C": C, "D": D, "F": F},
+            "shape": row["shape"], "tiling": row["tiling"],
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "tolerance": "1e-6 * max(1, max|plain|)",
-            "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
-            "library_ms": lib_ms, "library": "x.index_select(0, perm) @ w",
-            "bound_ms": 1e3 * max(flop_s, byte_s),
-            "bound_by": "operations" if flop_s >= byte_s else "bytes",
+            "ms": row["ms"], "kernel_ms": row["ms"],
+            "plain_ms": row["plain_ms"], "library_ms": row["library_ms"],
+            "library": "x.index_select(0, perm) @ w",
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "bound_peak": "the card's float64 peak, 67 TFLOP/s through the "
+                          "FP64 tensor cores, which the kernel's DMMA "
+                          "products use",
+            "at_q_shape": q_shape,
             "cases": cases}
 
 
@@ -290,19 +339,20 @@ def check_paged_decode(K, gen) -> dict:
 
 
 def _attn_case(gen, B, KV, G, L, Dh, keep_dead=None, packed=False,
-               dead_head=False, q_scale=1.0):
+               dead_head=False, q_scale=1.0, Lk=None):
     """q (B, H, L, Dh), k/v (B, KV, L, Dh), kv_keep (B, H, L) with about
     ``keep_dead`` of the columns dead, q_pos: each head's rows packed
     critical-first (a random ~60% critical set) as the flash backend packs
     them."""
     dev = "cuda"
     H = KV * G
+    Lk = L if Lk is None else Lk
     q = torch.randn(B, H, L, Dh, device=dev, generator=gen) * q_scale
-    k = torch.randn(B, KV, L, Dh, device=dev, generator=gen)
-    v = torch.randn(B, KV, L, Dh, device=dev, generator=gen)
+    k = torch.randn(B, KV, Lk, Dh, device=dev, generator=gen)
+    v = torch.randn(B, KV, Lk, Dh, device=dev, generator=gen)
     keep = None
     if keep_dead is not None:
-        keep = torch.rand(B, H, L, device=dev, generator=gen) >= keep_dead
+        keep = torch.rand(B, H, Lk, device=dev, generator=gen) >= keep_dead
         if dead_head:
             keep[0, H // 2] = False                  # an all-dead keep row
     q_pos = None
@@ -368,13 +418,19 @@ def check_flash_attention(K, gen) -> dict:
               dict(causal=False, window=48)),
              ("all_dead_keep_row", dict(G=1, L=L, keep_dead=0.3,
                                         dead_head=True),
-              dict(causal=False))]
+              dict(causal=False)),
+             # around the 32-row q tile and the 64-column K tile; Dh 128
+             ("ragged_Lq33_Lk97", dict(G=1, L=33, Lk=97, keep_dead=0.3),
+              dict(causal=False)),
+             ("dh_128", dict(G=1, L=L, keep_dead=0.3, packed=True,
+                             Dh=128), dict(causal=False))]
     results = []
     for name, shape, kw in cases:
         Bc = shape.pop("B", B)
         G = shape.pop("G")
         Lc = shape.pop("L")
-        q, k, v, keep, q_pos = _attn_case(gen, Bc, KV // G, G, Lc, Dh,
+        Dc = shape.pop("Dh", Dh)
+        q, k, v, keep, q_pos = _attn_case(gen, Bc, KV // G, G, Lc, Dc,
                                           **shape)
         got = K.flash_attention(q, k, v, kv_keep=keep, q_pos=q_pos, **kw)
         ref = K.flash_attention_plain(q, k, v, kv_keep=keep, q_pos=q_pos,
@@ -385,7 +441,7 @@ def check_flash_attention(K, gen) -> dict:
             _fail(f"flash_attention case {name}: max |err| {err} > {tol}")
         if name == "all_dead_keep_row" and got[0, KV // 2].abs().max() != 0:
             _fail("flash_attention: an all-dead keep row must give zeros")
-        results.append({"case": name, "B": Bc, "max_abs_err": err,
+        results.append({"case": name, "B": Bc, "Dh": Dc, "max_abs_err": err,
                         "tolerance": tol})
     # timed at the shape of paths (b) and (c), B 1, and of path (d), B 8
     row = _time_flash_attention(K, gen, B, KV, L, Dh)
@@ -402,9 +458,9 @@ def check_flash_attention(K, gen) -> dict:
                        "q_pos / kv_keep (float32)",
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "bound_peak": "the card's float64 peak, 67 TFLOP/s through "
-                          "the FP64 tensor cores (the kernel uses no DMMA: "
-                          "its own design limit is the 34 TFLOP/s of the "
-                          "CUDA cores' FP64 FMA, twice this bound)",
+                          "the FP64 tensor cores, which the kernel's DMMA "
+                          "products use (its float64 exp of every live pair "
+                          "runs on the CUDA cores beside them)",
             "at_path_d_shape": path_d,
             "cases": results}
 
@@ -1030,10 +1086,12 @@ def main() -> int:
           f"torch {torch.__version__} | CUDA {torch.version.cuda}")
     build_s = _build.build_all()
     print(f"kernel build: {build_s:.2f} s for {sorted(_build.SOURCES)}")
-    for name in _build.SOURCES:
-        info = [ln.strip() for ln in _build.build_log(name).splitlines()
-                if "registers" in ln or "spill" in ln]
-        print(f"  {name}: " + " | ".join(info))
+    ptxas = {name: _ptxas(_build.build_log(name)) for name in _build.SOURCES}
+    for name, fns in ptxas.items():
+        print(f"  {name}: " + " | ".join(
+            f"{f['function']}: {f['registers']} registers, spill stores "
+            f"{f['spill_stores']} B, loads {f['spill_loads']} B"
+            for f in fns))
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = [check_gathered_matmul(K, gen), check_gather_rows(K, gen),
@@ -1042,6 +1100,8 @@ def main() -> int:
             check_local_similarity(K, gen)]
     paths = serve(K)
     paths["noncausal_exact_forward"] = exact_forward(K)
+    for row in rows:
+        row["ptxas"] = ptxas[Path(row["source"]).stem]
     for row in rows:
         by_path = {p: n[row["name"]] for p, n in paths.items()
                    if n.get(row["name"])}

@@ -1,7 +1,8 @@
 """Flash attention with the SPLS block skips: the whole-prompt kernel.
 
-``flash_attention`` runs the CUDA kernel ``csrc/flash_attention.cu``,
-which replaces the Pallas TPU kernel
+``flash_attention`` runs the CUDA kernel ``csrc/flash_attention.cu``
+(both products on the FP64 tensor cores, accumulators in registers), which
+replaces the Pallas TPU kernel
 ``repro/kernels/flash_attention.py::flash_attention``; the source says
 what bounds it on the card and what its design does about that.
 
@@ -27,7 +28,7 @@ from typing import Optional
 
 import torch
 
-from .gathered_matmul import _check, _lib, _raise_on
+from .gathered_matmul import _check, _fn, _launch
 
 __all__ = ["flash_attention", "flash_attention_plain", "live_mask",
            "MAX_HEAD_DIM"]
@@ -35,7 +36,7 @@ __all__ = ["flash_attention", "flash_attention_plain", "live_mask",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
-MAX_HEAD_DIM = 128      # the kernel's shared-memory tiles hold Dh <= 128
+MAX_HEAD_DIM = 128      # the kernel pads Dh to 16, 32, 64 or 128
 
 
 def live_mask(Lq: int, Lk: int, causal: bool, window: Optional[int],
@@ -128,16 +129,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if softcap is not None and softcap <= 0:
         raise ValueError(f"softcap must be positive, got {softcap}")
     out = torch.empty_like(q)
-    fn = _lib("flash_attention", "flash_attention_f32",
-              [_P] * 6 + [_I] * 6 + [_D, _I, _I, _D, _P])
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        _raise_on(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                     None if kv_keep is None else kv_keep.data_ptr(),
-                     None if q_pos is None else q_pos.data_ptr(),
-                     out.data_ptr(), B, H, KV, Lq, Lk, Dh, Dh ** -0.5,
-                     int(causal), window or 0, softcap or 0.0, stream),
-                  "flash_attention")
+    fn = _fn("flash_attention", "flash_attention_f32",
+             (_P,) * 6 + (_I,) * 6 + (_D, _I, _I, _D, _P))
+    _launch(fn, dev, "flash_attention", q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), None if kv_keep is None else kv_keep.data_ptr(),
+            None if q_pos is None else q_pos.data_ptr(), out.data_ptr(), B,
+            H, KV, Lq, Lk, Dh, Dh ** -0.5, int(causal), window or 0,
+            softcap or 0.0)
     flash_attention.launches += 1
     return out
 

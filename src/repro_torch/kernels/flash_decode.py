@@ -21,7 +21,7 @@ from typing import Optional
 
 import torch
 
-from .gathered_matmul import _check, _lib, _raise_on
+from .gathered_matmul import _check, _fn, _launch
 
 __all__ = ["flash_decode", "flash_decode_plain"]
 
@@ -81,14 +81,11 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if softcap is not None and softcap <= 0:
         raise ValueError(f"softcap must be positive, got {softcap}")
     out = torch.empty_like(q)
-    fn = _lib("flash_decode", "flash_decode_f32",
-              [_P] * 5 + [_I] * 5 + [_F, _F, _I, _P])
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        _raise_on(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                     pos.data_ptr(), out.data_ptr(), B, KV, G, S, Dh,
-                     Dh ** -0.5, softcap or 0.0, window or 0, stream),
-                  "flash_decode")
+    fn = _fn("flash_decode", "flash_decode_f32",
+             (_P,) * 5 + (_I,) * 5 + (_F, _F, _I, _P))
+    _launch(fn, dev, "flash_decode", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            pos.data_ptr(), out.data_ptr(), B, KV, G, S, Dh, Dh ** -0.5,
+            softcap or 0.0, window or 0)
     flash_decode.launches += 1
     return out
 

@@ -26,7 +26,7 @@ import torch
 
 from repro_torch.core.quantizers import hlog_project
 
-from .gathered_matmul import _check, _lib, _raise_on
+from .gathered_matmul import _check, _fn, _launch
 
 __all__ = ["hlog_qmatmul", "hlog_qmatmul_plain"]
 
@@ -63,11 +63,9 @@ def hlog_qmatmul(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
                          f"{_MAX_ROWS} and K < 131072 (exact int32 sums), "
                          f"got ({M}, {K}) @ ({K2}, {N})")
     out = torch.empty((M, N), dtype=torch.float32, device=dev)
-    fn = _lib("hlog_qmatmul", "hlog_qmatmul_f32", [_P] * 3 + [_I] * 3 + [_P])
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        _raise_on(fn(xq.data_ptr(), wq.data_ptr(), out.data_ptr(), M, K, N,
-                     stream), "hlog_qmatmul")
+    fn = _fn("hlog_qmatmul", "hlog_qmatmul_f32", (_P,) * 3 + (_I,) * 3 + (_P,))
+    _launch(fn, dev, "hlog_qmatmul", xq.data_ptr(), wq.data_ptr(),
+            out.data_ptr(), M, K, N)
     hlog_qmatmul.launches += 1
     return out
 

@@ -21,7 +21,7 @@ import ctypes
 
 import torch
 
-from .gathered_matmul import _check, _lib, _raise_on
+from .gathered_matmul import _check, _fn, _launch
 
 __all__ = ["local_similarity_dist", "local_similarity_plain", "MAX_WINDOW"]
 
@@ -74,12 +74,10 @@ def local_similarity_dist(spa: torch.Tensor, w: int = 8) -> torch.Tensor:
                          f"{tuple(spa.shape)}")
     out = torch.empty((B, H, nw, w, w), dtype=torch.float32,
                       device=spa.device)
-    fn = _lib("local_similarity", "local_similarity_dist_f32",
-              [_P, _P, _LL, _I, _I, _P])
-    with torch.cuda.device(spa.device):
-        stream = torch.cuda.current_stream(spa.device).cuda_stream
-        _raise_on(fn(spa.data_ptr(), out.data_ptr(), B * H * nw, w, Lk,
-                     stream), "local_similarity_dist")
+    fn = _fn("local_similarity", "local_similarity_dist_f32",
+             (_P, _P, _LL, _I, _I, _P))
+    _launch(fn, spa.device, "local_similarity_dist", spa.data_ptr(),
+            out.data_ptr(), B * H * nw, w, Lk)
     local_similarity_dist.launches += 1
     return out
 

@@ -23,7 +23,7 @@ from typing import Optional
 
 import torch
 
-from .gathered_matmul import _check, _lib, _raise_on
+from .gathered_matmul import _check, _fn, _launch
 
 __all__ = ["paged_flash_decode", "paged_decode_plain"]
 
@@ -98,16 +98,12 @@ def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
     if softcap is not None and softcap <= 0:
         raise ValueError(f"softcap must be positive, got {softcap}")
     out = torch.empty_like(q)
-    fn = _lib("paged_decode", "paged_decode_f32",
-              [_P] * 8 + [_I] * 7 + [_F, _F, _I, _P])
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        _raise_on(fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                     pos_pages.data_ptr(), tables.data_ptr(),
-                     kv_len.data_ptr(), pos.data_ptr(), out.data_ptr(),
-                     B, KV, G, Dh, N, ps, P, Dh ** -0.5,
-                     softcap or 0.0, window or 0, stream),
-                  "paged_flash_decode")
+    fn = _fn("paged_decode", "paged_decode_f32",
+             (_P,) * 8 + (_I,) * 7 + (_F, _F, _I, _P))
+    _launch(fn, dev, "paged_flash_decode", q.data_ptr(), k_pages.data_ptr(),
+            v_pages.data_ptr(), pos_pages.data_ptr(), tables.data_ptr(),
+            kv_len.data_ptr(), pos.data_ptr(), out.data_ptr(), B, KV, G, Dh,
+            N, ps, P, Dh ** -0.5, softcap or 0.0, window or 0)
     paged_flash_decode.launches += 1
     return out
 

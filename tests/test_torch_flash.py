@@ -8,7 +8,8 @@ Tolerances: plain versions vs Pallas rtol = atol = 1e-5 (float64 vs float32
 sums in another order); on the card ``flash_attention`` vs its plain
 version 1e-6 x max(1, max |plain|) (both accumulate in float64 and round
 once), ``flash_decode`` vs its plain version 1e-5 (online vs two-pass
-float32 softmax).
+float32 softmax); the float64 emulation of the kernel's tiled online
+softmax equals the plain version bit for bit.
 
 The machine with the card has no JAX, so this file also imports without
 it: the ``cuda`` tests run there (``PYTHONPATH=src python -m pytest -m cuda
@@ -133,6 +134,91 @@ def test_flash_attention_cpu_takes_the_plain_version():
     assert K.flash_attention.launches == before
 
 
+def _tiled_emulation(q, k, v, causal, window, softcap, keep, q_pos, bq,
+                     kq):
+    """The CUDA kernel's order in float64 (numpy): ``bq``-row q tiles,
+    64-column K tiles under the Pallas skip predicates, each tile's ``kq``
+    column slices with an online softmax of their own (running max, sum,
+    correction; a dead entry's weight exactly 0), the slices scaled to the
+    row's common max and summed in order at the end, times the reciprocal
+    of the sum, one rounding to float32."""
+    B, H, Lq, Dh = q.shape
+    KV, Lk = k.shape[1], k.shape[2]
+    G, scale, cw = H // KV, Dh ** -0.5, 64 // kq
+    out = np.zeros(q.shape, np.float32)
+    for b in range(B):
+        for h in range(H):
+            kk = k[b, h // G].astype(np.float64)
+            vv = v[b, h // G].astype(np.float64)
+            kp = np.ones(Lk, bool) if keep is None else keep[b, h]
+            for q0 in range(0, Lq, bq):
+                nq = min(bq, Lq - q0)
+                pos = (np.arange(q0, q0 + nq) if q_pos is None
+                       else q_pos[b, h, q0:q0 + nq]).astype(np.int64)
+                qq = q[b, h, q0:q0 + nq].astype(np.float64)
+                m = np.full((kq, nq), -1e30)
+                l = np.zeros((kq, nq))
+                o = np.zeros((kq, nq, Dh))
+                for k0 in range(0, Lk, 64):
+                    live = not (causal and k0 > pos.max())
+                    if window is not None:
+                        live &= k0 + 63 > pos.min() - window
+                        if not causal:
+                            live &= k0 < pos.max() + window
+                    if not (live and kp[k0:k0 + 64].any()):
+                        continue
+                    for sl in range(kq):
+                        cols = np.arange(k0 + cw * sl,
+                                         min(k0 + cw * sl + cw, Lk))
+                        if not kp[cols].any():
+                            continue
+                        sc = (qq @ kk[cols].T) * scale
+                        if softcap is not None:
+                            sc = np.tanh(sc / softcap) * softcap
+                        ok = np.broadcast_to(kp[cols], sc.shape).copy()
+                        dj = cols[None, :] - pos[:, None]
+                        if causal:
+                            ok &= dj <= 0
+                        if window is not None:
+                            ok &= -dj < window
+                            if not causal:
+                                ok &= dj < window
+                        sc = np.where(ok, sc, -np.inf)
+                        mn = np.maximum(m[sl], sc.max(-1))
+                        corr = np.where(mn == m[sl], 1.0,
+                                        np.exp(m[sl] - mn))
+                        p = np.exp(sc - mn[:, None])
+                        m[sl] = mn
+                        l[sl] = l[sl] * corr + p.sum(-1)
+                        o[sl] = o[sl] * corr[:, None] + p @ vv[cols]
+                mm = m.max(0)
+                a = np.where(m == mm, 1.0, np.exp(m - mm))
+                lt = (l * a).sum(0)
+                lt = np.where(lt > 0, lt, 1.0)
+                res = (o * a[..., None]).sum(0) * (1.0 / lt)[:, None]
+                out[b, h, q0:q0 + nq] = res.astype(np.float32)
+    return out
+
+
+@pytest.mark.parametrize("case", list(ATTN_CASES))
+@pytest.mark.parametrize("Dh,L,bq,kq", [(16, None, 32, 2), (64, 200, 32, 2),
+                                        (128, 200, 32, 4)])
+def test_flash_tiled_order_matches_plain_bitwise(case, Dh, L, bq, kq):
+    """One rounding of float64 sums: the kernel's tiled online softmax, in
+    each of its tilings (32 rows x 2 column slices up to Dh 64, x 4 slices
+    at Dh 128), gives the plain version's bits."""
+    c = dict(ATTN_CASES[case])
+    if L is not None and "L" not in c:
+        c["L"] = L
+    q, k, v, keep, q_pos = _attn_inputs(c, seed=len(case), Dh=Dh)
+    got = _tiled_emulation(q, k, v, keep=keep, q_pos=q_pos, bq=bq, kq=kq,
+                           **_attn_kw(c))
+    want = K.flash_attention_plain(
+        t(q), t(k), t(v), kv_keep=None if keep is None else t(keep),
+        q_pos=None if q_pos is None else t(q_pos), **_attn_kw(c))
+    np.testing.assert_array_equal(got, n(want))
+
+
 # ---------------------------------------------------------------------------
 # flash_decode (B5)
 # ---------------------------------------------------------------------------
@@ -209,6 +295,51 @@ def test_flash_attention_kernel_vs_plain(cuda_device, case, Dh, L):
                                   **_attn_kw(c))
     tol = 1e-6 * max(1.0, float(ref.abs().max()))
     assert float((got - ref).abs().max()) <= tol
+
+
+def _flash_kernel_check(device, c, seed, Dh, B=2, KV=2):
+    args = [None if a is None else t(a).to(device)
+            for a in _attn_inputs(c, seed=seed, B=B, KV=KV, Dh=Dh)]
+    q, k, v, keep, q_pos = args
+    before = K.flash_attention.launches
+    got = K.flash_attention(q, k, v, kv_keep=keep, q_pos=q_pos,
+                            **_attn_kw(c))
+    torch.cuda.synchronize()
+    assert K.flash_attention.launches == before + 1
+    ref = K.flash_attention_plain(q, k, v, kv_keep=keep, q_pos=q_pos,
+                                  **_attn_kw(c))
+    tol = 1e-6 * max(1.0, float(ref.abs().max()))
+    assert torch.isfinite(got).all()
+    assert float((got - ref).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["path", "causal_window"])
+@pytest.mark.parametrize("Dh", [16, 64, 128])
+@pytest.mark.parametrize("L", [31, 32, 33, 200, 384])
+def test_flash_attention_kernel_tile_edges(cuda_device, case, Dh, L):
+    """Lq = Lk at and around the kernel's 32-row q tile and 64-column K
+    tile, at each padded head width."""
+    _flash_kernel_check(cuda_device, dict(ATTN_CASES[case], L=L), seed=L,
+                        Dh=Dh)
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_batch8(cuda_device):
+    """Path (d)'s shape: 8 prompts, 12 heads, 384 rows, Dh 64."""
+    _flash_kernel_check(cuda_device, dict(ATTN_CASES["path"], L=384),
+                        seed=8, Dh=64, B=8, KV=12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["path", "causal_window", "softcap"])
+@pytest.mark.parametrize("Dh", [16, 128])
+@pytest.mark.parametrize("L", [100, 384])
+def test_flash_attention_kernel_wide_grid(cuda_device, case, Dh, L):
+    """A grid of several blocks per SM (B 8 x 12 heads) at the narrowest and
+    the widest head."""
+    _flash_kernel_check(cuda_device, dict(ATTN_CASES[case], L=L), seed=L,
+                        Dh=Dh, B=8, KV=12)
 
 
 @pytest.mark.cuda

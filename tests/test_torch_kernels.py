@@ -3,7 +3,10 @@ kernels (interpret mode on the CPU), routing by device, and -- on a card
 only -- the CUDA kernels against their plain versions.
 
 Tolerances: gathers are exact; the gathered matmul and the paged decode
-agree to rtol = atol = 1e-5 (float32 sums in another order).
+agree to rtol = atol = 1e-5 (float32 sums in another order); on the card
+the gathered matmul agrees with its plain version to 1e-6 x max(1,
+max |plain|) (both round a float64 sum once); the float64 emulation of the
+kernel's split-K order equals the plain version bit for bit.
 
 The machine with the card has no JAX, so this file also imports without
 it: the ``cuda`` tests run there (``PYTHONPATH=src python -m pytest -m cuda
@@ -17,6 +20,8 @@ import pytest
 import torch
 
 from repro_torch import kernels as K
+from repro_torch.kernels.gathered_matmul import (GMM_BK, GMM_MAX_SPLITS,
+                                                 GMM_MIN_SLICES, gmm_tiling)
 
 try:
     import jax  # noqa: F401
@@ -157,6 +162,67 @@ def test_cpu_tensors_take_the_plain_version():
                                  "local_similarity_dist": 0}
 
 
+# the tiling of the CUDA gathered_matmul (a pure function of the shape)
+
+@pytest.mark.parametrize("C", [8, 16, 24, 32, 40, 48, 56, 64, 100])
+@pytest.mark.parametrize("F,D", [(768, 768), (3072, 768), (100, 200),
+                                 (37, 77)])
+def test_gmm_tiling(C, F, D):
+    bm, splits = gmm_tiling(C, F, D)
+    assert bm in (16, 32, 64) and (bm >= C or bm == 64)
+    assert bm == 16 or bm // 2 < C                # the least that covers C
+    slices = -(-D // GMM_BK)
+    per = -(-slices // splits)
+    assert 1 <= splits <= GMM_MAX_SPLITS
+    assert (splits - 1) * per < slices            # every split has a slice
+    assert splits == 1 or per >= GMM_MIN_SLICES
+    blocks = -(-C // bm) * -(-F // 64) * splits
+    # fills the 132 SMs once, unless the splits are capped
+    assert blocks >= 132 or splits == min(GMM_MAX_SPLITS,
+                                          slices // GMM_MIN_SLICES) \
+        or splits == 1
+
+
+# one shape for each split factor the helper can choose; D 200 and 77 are
+# no multiple of the 32-deep K-slice, and 77 / 37 no multiple of 4
+GMM_SPLIT_SHAPES = {1: (13, 37, 77), 2: (8, 64, 128), 3: (40, 100, 200),
+                    4: (64, 3072, 768), 5: (8, 100, 320), 6: (16, 64, 384),
+                    7: (40, 64, 448), 8: (64, 768, 768)}
+
+
+@pytest.mark.parametrize("splits", sorted(GMM_SPLIT_SHAPES))
+def test_gmm_tiling_split_table(splits):
+    assert gmm_tiling(*GMM_SPLIT_SHAPES[splits])[1] == splits
+
+
+def _split_k_emulation(x, w, perm, D, splits):
+    """The kernel's order in float64: within a split, 8-deep steps in
+    turn; then the splits' partial tiles summed in split order; one
+    rounding to float32."""
+    xg = x[np.clip(perm, 0, x.shape[0] - 1)].astype(np.float64)
+    wd = w.astype(np.float64)
+    slices = -(-D // GMM_BK)
+    per = -(-slices // splits)
+    total = np.zeros((xg.shape[0], w.shape[1]))
+    for s in range(splits):
+        part = np.zeros_like(total)
+        for k in range(s * per * GMM_BK, min(D, (s + 1) * per * GMM_BK), 8):
+            part += xg[:, k:k + 8] @ wd[k:k + 8]
+        total = total + part
+    return total.astype(np.float32)
+
+
+@pytest.mark.parametrize("splits", sorted(GMM_SPLIT_SHAPES))
+def test_gmm_split_k_order_matches_plain_bitwise(splits):
+    """One rounding of a float64 sum: the split-K order the kernel uses
+    gives the plain version's bits at the kernel's own tiling."""
+    C, F, D = GMM_SPLIT_SHAPES[splits]
+    x, w, perm, _ = _gmm_inputs(64, D, F, C, seed=splits)
+    got = _split_k_emulation(x, w, perm, D, splits)
+    want = n(K.gathered_matmul_plain(t(x), t(w), t(perm)))
+    np.testing.assert_array_equal(got, want)
+
+
 def test_other_devices_raise():
     x = torch.zeros(4, 4, device="meta")
     with pytest.raises(ValueError, match="CUDA or CPU"):
@@ -182,6 +248,35 @@ def test_gathered_matmul_kernel_vs_plain(cuda_device, C, F, fused):
     ref = K.gathered_matmul_plain(*args, s)
     # both accumulate in float64 and round once
     torch.testing.assert_close(got, ref, rtol=0, atol=1e-6)
+
+
+def _gmm_kernel_check(device, L, D, F, C, seed, fused=False):
+    x, w, perm, slot = _gmm_inputs(L, D, F, C, seed=seed, M=L)
+    args = [t(a).to(device) for a in (x, w, perm)]
+    s = t(slot).to(device) if fused else None
+    before = K.gathered_matmul.launches
+    got = K.gathered_matmul(*args, s)
+    torch.cuda.synchronize()
+    assert K.gathered_matmul.launches == before + 1
+    ref = K.gathered_matmul_plain(*args, s)
+    tol = 1e-6 * max(1.0, float(ref.abs().max()))
+    assert float((got - ref).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [8, 16, 24, 32, 40, 48, 56, 64])
+@pytest.mark.parametrize("F", [768, 3072, 100])
+def test_gathered_matmul_kernel_buckets(cuda_device, C, F):
+    """Every capacity bucket of a 64-row chunk at the path's widths."""
+    _gmm_kernel_check(cuda_device, 64, 768, F, C, seed=C + F)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", sorted(GMM_SPLIT_SHAPES))
+def test_gathered_matmul_kernel_splits(cuda_device, splits):
+    """Each split-K factor, ragged D included, with the fused scatter."""
+    C, F, D = GMM_SPLIT_SHAPES[splits]
+    _gmm_kernel_check(cuda_device, 64, D, F, C, seed=splits, fused=True)
 
 
 @pytest.mark.cuda
