@@ -14,13 +14,17 @@ and nothing falls back to the CPU):
    repro_torch/csrc`` (all ``nvcc`` processes started together).
 2. Kernels: each of the seven kernels against its plain PyTorch version on
    the card, at the paths' shapes and in the edge cases, with stated
-   tolerances; timed with CUDA events (warmed up, median of repeats,
-   inputs rotated through more than the 50 MB L2 so every launch reads its
-   operands from device memory) beside its plain version, one PyTorch
-   library call computing the same function, and its bound
+   tolerances, launching once a call; timed beside its plain version, one
+   PyTorch library call computing the same function, and its bound
    (``gathered_matmul`` at the FFN and the Q projection's widths,
-   ``flash_attention`` at batch 1 and at path (d)'s batch 8); ptxas's
-   registers and spills of every kernel function.
+   ``flash_attention`` at batch 1 and at path (d)'s batch 8).  ``ms`` is
+   a call's time by CUDA events (warmed up, median of repeats, inputs
+   rotated through more than the 50 MB L2 so every launch reads its
+   operands from device memory), the host's share included; ``kernel_ms``
+   (``library_kernel_ms``) is the device time per call that
+   ``torch.profiler`` records for the kernel itself (for all of the
+   library call's device work).  ptxas's registers and spills of every
+   kernel function.
 3. Serve: full-width BERT-Base (12 x 768, vocab 30522, random weights from
    a seed), 8 requests of 384 tokens, 16 new tokens each, on three paths:
    (a) the causal form through ``PagedServingEngine`` with SPLS chunked
@@ -71,7 +75,7 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 FP32_FLOPS = 67e12            # H100 SXM float32 outside the tensor cores
 FP64_FLOPS = 67e12            # H100 SXM float64 peak (FP64 tensor cores)
 BF16_FLOPS = 989e12           # H100 SXM dense bf16 tensor cores
-# int32 multiply-add on the CUDA cores: 64 lanes per SM per clock, half the
+# int32 operations on the CUDA cores: 64 lanes per SM per clock, half the
 # float32 rate (Hopper white paper)
 INT32_OPS = 33.5e12
 L2_ROTATE_BYTES = 80 << 20    # > the 50 MB L2
@@ -109,6 +113,73 @@ def _time_ms(fn, sets, reps: int = 7, inner: int = 20) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b) / inner)
     return statistics.median(times)
+
+
+def _device_ms(fn, sets, match=None, calls: int = 50, by_kernel=None):
+    """Device time per call from ``torch.profiler`` over ``calls`` calls,
+    each on the next input set.  With ``match`` (a kernel name, or a tuple
+    of the names of a call's kernels): the sum over those kernels of each
+    one's mean duration (each runs once a call; the launch counts check
+    that).  Without: the summed duration of all the card's activity
+    (kernels, copies, fills) over the calls the trace holds, counted as
+    the most frequent kernel's launches (at most ``calls``: a library call
+    may launch one kernel twice).  The profiler may drop an activity at the
+    edge of its window, so neither simply divides by ``calls``.  A dict
+    given as ``by_kernel`` receives each matched kernel's own ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    names = (match,) if isinstance(match, str) else match
+    for i in range(3):
+        fn(*sets[i % len(sets)])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(calls):
+            fn(*sets[i % len(sets)])
+        torch.cuda.synchronize()
+    us, seen = {}, {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        key = e.name if names is None else next(
+            (m for m in names if m in e.name), None)
+        if key is not None:
+            us[key] = us.get(key, 0.0) + e.time_range.elapsed_us()
+            seen[key] = seen.get(key, 0) + 1
+    if names is not None:
+        if any(not calls // 2 <= seen.get(m, 0) <= calls for m in names):
+            _fail(f"the profiler saw {seen} launches of {names} in {calls} "
+                  f"calls")
+        if by_kernel is not None:
+            by_kernel.update({m: us[m] / seen[m] / 1e3 for m in names})
+        return sum(us[m] / seen[m] for m in names) / 1e3
+    n = min(calls, max(seen.values(), default=0))
+    if n < calls // 2:
+        _fail(f"the profiler saw {n} calls' device activity in {calls} "
+              f"calls: {seen}")
+    return sum(us.values()) / 1e3 / n
+
+
+def _timings(kernel, plain, library, sets, match, lib_sets=None) -> dict:
+    """The kernel's, its plain version's and the library call's ``ms`` per
+    call (CUDA events around many calls: the host's share of a call
+    included), and the device time per call of the kernel (its own
+    kernels, ``match``; split by kernel when a call runs several) and of
+    the library call (all its device activity)."""
+    lib_sets = sets if lib_sets is None else lib_sets
+    by_kernel = {}
+    t = {"ms": _time_ms(kernel, sets), "plain_ms": _time_ms(plain, sets),
+         "library_ms": _time_ms(library, lib_sets),
+         "kernel_ms": _device_ms(kernel, sets, match, by_kernel=by_kernel),
+         "library_kernel_ms": _device_ms(library, lib_sets)}
+    if len(by_kernel) > 1:
+        t["kernel_ms_by_kernel"] = by_kernel
+    return t
+
+
+def _times(row: dict) -> dict:
+    return {k: row[k] for k in ("ms", "kernel_ms", "plain_ms", "library_ms",
+                                "library_kernel_ms")}
 
 
 def _n_sets(bytes_per_set: int) -> int:
@@ -159,15 +230,13 @@ def _time_gathered_matmul(K, gen, L, C, D, F) -> dict:
         perm = torch.randint(0, L, (C,), device=dev, generator=gen,
                              dtype=torch.int32)
         sets.append((x, w, perm))
-    ms = _time_ms(K.gathered_matmul, sets)
-    plain_ms = _time_ms(K.gathered_matmul_plain, sets)
-    lib_ms = _time_ms(lambda x, w, p: x.index_select(0, p) @ w, sets)
+    t = _timings(K.gathered_matmul, K.gathered_matmul_plain,
+                 lambda x, w, p: x.index_select(0, p) @ w, sets, "gmm_kernel")
     flop_s = 2.0 * C * D * F / FP64_FLOPS
     byte_s = (C * D + D * F + C * F) * 4 / HBM_BYTES_PER_S
     bm, splits = gmm_tiling(C, F, D)
     return {"shape": {"L": L, "C": C, "D": D, "F": F},
-            "tiling": {"bm": bm, "bn": 64, "splits": splits},
-            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "tiling": {"bm": bm, "bn": 64, "splits": splits}, **t,
             "bound_ms": 1e3 * max(flop_s, byte_s),
             "bound_by": "operations" if flop_s >= byte_s else "bytes"}
 
@@ -210,9 +279,7 @@ def check_gathered_matmul(K, gen) -> dict:
             "shape": row["shape"], "tiling": row["tiling"],
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "tolerance": "1e-6 * max(1, max|plain|)",
-            "ms": row["ms"], "kernel_ms": row["ms"],
-            "plain_ms": row["plain_ms"], "library_ms": row["library_ms"],
-            "library": "x.index_select(0, perm) @ w",
+            **_times(row), "library": "x.index_select(0, perm) @ w",
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "bound_peak": "the card's float64 peak, 67 TFLOP/s through the "
                           "FP64 tensor cores, which the kernel's DMMA "
@@ -235,16 +302,15 @@ def check_gather_rows(K, gen) -> dict:
         sets.append((torch.randn(C, F, device=dev, generator=gen),
                      torch.randint(0, C, (M,), device=dev, generator=gen,
                                    dtype=torch.int32)))
-    ms = _time_ms(K.gather_rows, sets)
-    plain_ms = _time_ms(K.gather_rows_plain, sets)
-    lib_ms = _time_ms(lambda s, i: s.index_select(0, i), sets)
+    t = _timings(K.gather_rows, K.gather_rows_plain,
+                 lambda s, i: s.index_select(0, i), sets,
+                 "gather_rows_kernel")
     return {"name": "gather_rows", "route": "cuda",
             "source": "src/repro_torch/csrc/gather_rows.cu",
             "replaces": "src/repro/kernels/gathered_matmul.py:198",
             "shape": {"C": C, "F": F, "M": M},
             "max_abs_err": err, "tolerance": 0.0,
-            "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
-            "library_ms": lib_ms, "library": "src.index_select(0, idx)",
+            **t, "library": "src.index_select(0, idx)",
             "bound_ms": 1e3 * 2 * M * F * 4 / HBM_BYTES_PER_S,
             "bound_by": "bytes"}
 
@@ -306,9 +372,6 @@ def check_paged_decode(K, gen) -> dict:
     per_set = 2 * KV * N * ps * Dh * 4
     sets = [_decode_inputs(gen, B, KV, 1, Dh, N, ps, P, path_lens, True)
             for _ in range(_n_sets(per_set))]
-    ms = _time_ms(K.paged_flash_decode, sets)
-    plain_ms = _time_ms(K.paged_decode_plain, sets)
-
     def sdpa(q, kp, vp, pos_pages, tables, kv_len, pos):
         t = tables.long()
         Bq, KVq, Gq, Dq = q.shape
@@ -319,7 +382,8 @@ def check_paged_decode(K, gen) -> dict:
         return torch.nn.functional.scaled_dot_product_attention(
             q, kg, vg, attn_mask=m[:, None, None, :])
 
-    lib_ms = _time_ms(sdpa, sets)
+    t = _timings(K.paged_flash_decode, K.paged_decode_plain, sdpa, sets,
+                 "paged_decode_kernel")
     live = sum(path_lens)
     byte_s = (2 * live * KV * Dh * 4 + 2 * B * KV * Dh * 4) / HBM_BYTES_PER_S
     flop_s = 4.0 * B * KV * live * Dh / FP32_FLOPS
@@ -330,8 +394,7 @@ def check_paged_decode(K, gen) -> dict:
                       "P": P, "kv_len": path_lens},
             "max_abs_err": max(r["max_abs_err"] for r in results),
             "tolerance": 1e-5,
-            "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
-            "library_ms": lib_ms,
+            **t,
             "library": "block-table gather + scaled_dot_product_attention",
             "bound_ms": 1e3 * max(byte_s, flop_s),
             "bound_by": "bytes" if byte_s >= flop_s else "operations",
@@ -383,18 +446,17 @@ def _time_flash_attention(K, gen, B, KV, L, Dh) -> dict:
         q, k, v, causal=False, kv_keep=keep, q_pos=qp)
     fp = lambda q, k, v, keep, qp: K.flash_attention_plain(
         q, k, v, causal=False, kv_keep=keep, q_pos=qp)
-    ms = _time_ms(fa, sets)
-    plain_ms = _time_ms(fp, sets)
-    lib_ms = _time_ms(
+    t = _timings(
+        fa, fp,
         lambda q, k, v, m: torch.nn.functional.scaled_dot_product_attention(
-            q, k, v, attn_mask=m), lib_sets)
+            q, k, v, attn_mask=m), sets, "flash_attention_kernel", lib_sets)
     H = KV
     byte_s = ((4 * B * H * L * Dh) * 4 + B * H * L * (1 + 4)) \
         / HBM_BYTES_PER_S
     flop_s = 4.0 * Dh * live / FP64_FLOPS
     return {"shape": {"B": B, "H": H, "L": L, "Dh": Dh, "causal": False,
                       "live_pairs": live, "all_pairs": B * H * L * L},
-            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            **t,
             "bound_ms": 1e3 * max(byte_s, flop_s),
             "bound_by": "operations" if flop_s >= byte_s else "bytes"}
 
@@ -452,8 +514,7 @@ def check_flash_attention(K, gen) -> dict:
             "shape": row["shape"],
             "max_abs_err": max(r["max_abs_err"] for r in results),
             "tolerance": "1e-6 * max(1, max|plain|)",
-            "ms": row["ms"], "kernel_ms": row["ms"],
-            "plain_ms": row["plain_ms"], "library_ms": row["library_ms"],
+            **_times(row),
             "library": "scaled_dot_product_attention, boolean mask from "
                        "q_pos / kv_keep (float32)",
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
@@ -466,41 +527,68 @@ def check_flash_attention(K, gen) -> dict:
 
 
 def check_flash_decode(K, gen) -> dict:
+    from repro_torch.kernels.flash_decode import decode_split_count
+
     dev = "cuda"
     B, KV, S, Dh = 4, 12, 512, 64
 
-    def inputs(G, pos, q_scale=1.0, S=S):
-        kv = KV // G
-        q = torch.randn(B, kv, G, Dh, device=dev, generator=gen) * q_scale
-        k = torch.randn(B, kv, S, Dh, device=dev, generator=gen)
-        v = torch.randn(B, kv, S, Dh, device=dev, generator=gen)
+    def inputs(G, pos, q_scale=1.0, S=S, Dh=Dh, KV=KV):
+        kv, Bc = KV // G, len(pos)
+        q = torch.randn(Bc, kv, G, Dh, device=dev, generator=gen) * q_scale
+        k = torch.randn(Bc, kv, S, Dh, device=dev, generator=gen)
+        v = torch.randn(Bc, kv, S, Dh, device=dev, generator=gen)
         return q, k, v, torch.tensor(pos, dtype=torch.int32, device=dev)
 
-    def path_pos():
-        return torch.randint(384, 401, (B,), generator=torch.Generator()
+    def path_pos(n=B):
+        return torch.randint(384, 401, (n,), generator=torch.Generator()
                              .manual_seed(int(torch.randint(
                                  0, 1 << 30, (1,), device=dev,
                                  generator=gen)))).tolist()
 
+    # without a window the path's rows split 8 ways, S / 8 = 64 slots a
+    # split; the windows below are shorter than that, and exactly that
     cases = [("path", dict(G=1, pos=path_pos()), {}),
              ("window_64", dict(G=1, pos=path_pos()), dict(window=64)),
              ("softcap_30", dict(G=1, pos=path_pos(), q_scale=8.0),
               dict(softcap=30.0)),
              ("gqa_g4", dict(G=4, pos=path_pos()), dict(window=100)),
              ("pos_0", dict(G=1, pos=[0, 511, 5, 64]), {}),
-             # a cache that is no multiple of the kernel's K tile
+             # a cache that is no multiple of the old kernel's K tile
              ("ragged_S_300", dict(G=1, pos=[299, 150, 0, 257], S=300),
-              dict(window=100))]
+              dict(window=100)),
+             ("B_1", dict(G=1, pos=path_pos(1)), {}),
+             ("B_64", dict(G=1, pos=path_pos(64)), {}),
+             ("pos_S_minus_1", dict(G=1, pos=[S - 1] * B), {}),
+             ("window_under_one_split", dict(G=1, pos=path_pos()),
+              dict(window=40)),
+             ("window_one_split", dict(G=1, pos=[S - 1, 200, 63, 64]),
+              dict(window=64)),
+             ("gqa_g8", dict(G=8, pos=path_pos(), KV=16), dict(window=100)),
+             ("dh_128", dict(G=1, pos=path_pos(), Dh=128), {}),
+             ("dh_256_softcap", dict(G=2, pos=path_pos(), Dh=256,
+                                     q_scale=4.0), dict(softcap=30.0)),
+             ("dh_20_scalar", dict(G=1, pos=path_pos(), Dh=20), {}),
+             ("dh_20_gqa_g4", dict(G=4, pos=[299, 0, 17, 511], Dh=20),
+              dict(window=70))]
     results = []
     for name, c, kw in cases:
         inp = inputs(**c)
+        before = K.flash_decode.launches
         got = K.flash_decode(*inp, **kw)
+        launched = K.flash_decode.launches - before
         ref = K.flash_decode_plain(*inp, **kw)
         err = _max_err(got, ref)
         tol = 1e-5
-        if not torch.isfinite(got).all() or not err <= tol:
-            _fail(f"flash_decode case {name}: max |err| {err} > {tol}")
-        results.append({"case": name, "max_abs_err": err, "tolerance": tol})
+        if launched != 1 or not torch.isfinite(got).all() or not err <= tol:
+            _fail(f"flash_decode case {name}: max |err| {err} > {tol} or "
+                  f"{launched} launches")
+        q = inp[0]
+        results.append({"case": name, "B": q.shape[0], "G": q.shape[2],
+                        "Dh": q.shape[3], "S": inp[1].shape[2],
+                        "splits": decode_split_count(
+                            q.shape[0] * q.shape[1], inp[1].shape[2],
+                            kw.get("window")),
+                        "max_abs_err": err, "tolerance": tol})
     pos = path_pos()
     per_set = 2 * B * KV * S * Dh * 4
     sets, lib_sets = [], []
@@ -509,11 +597,10 @@ def check_flash_decode(K, gen) -> dict:
         sets.append((q, k, v, p))
         m = torch.arange(S, device=dev)[None, :] <= p[:, None].long()
         lib_sets.append((q, k, v, m[:, None, None, :]))
-    ms = _time_ms(K.flash_decode, sets)
-    plain_ms = _time_ms(K.flash_decode_plain, sets)
-    lib_ms = _time_ms(
+    t = _timings(
+        K.flash_decode, K.flash_decode_plain,
         lambda q, k, v, m: torch.nn.functional.scaled_dot_product_attention(
-            q, k, v, attn_mask=m), lib_sets)
+            q, k, v, attn_mask=m), sets, "flash_decode_kernel", lib_sets)
     live = sum(x + 1 for x in pos)
     byte_s = (2 * live * KV * Dh * 4 + 2 * B * KV * Dh * 4 + B * 4) \
         / HBM_BYTES_PER_S
@@ -523,10 +610,9 @@ def check_flash_decode(K, gen) -> dict:
             "replaces": "src/repro/kernels/flash_decode.py:82",
             "shape": {"B": B, "KV": KV, "G": 1, "S": S, "Dh": Dh,
                       "pos": pos},
+            "splits": decode_split_count(B * KV, S),
             "max_abs_err": max(r["max_abs_err"] for r in results),
-            "tolerance": 1e-5,
-            "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
-            "library_ms": lib_ms,
+            "tolerance": 1e-5, **t,
             "library": "scaled_dot_product_attention, boolean mask j <= "
                        "pos",
             "bound_ms": 1e3 * max(byte_s, flop_s),
@@ -542,22 +628,55 @@ def _codes(shape, gen) -> torch.Tensor:
                                           generator=gen))[0]
 
 
+def _hlog_worst(name: str, m: int, k: int, n: int):
+    """Codes that drive the exact sums to their extremes: all 127 (every
+    product 16384, every sum K * 16384: 2^22 at K 256, 2^24 at K 1024 and
+    past it at 1025), or 127 with signs alternating by (row + column) and
+    along K in runs of 300 (partial sums climb towards the bound, fall back
+    and change sign across the drains)."""
+    x = torch.full((m, k), 127.0, device="cuda")
+    w = torch.full((k, n), 127.0, device="cuda")
+    if name.startswith("alternating"):
+        i = torch.arange(m, device="cuda")[:, None]
+        j = torch.arange(k, device="cuda")[None, :]
+        x = x * (1 - 2 * ((i + j // 300) % 2))
+        w = w * (1 - 2 * (torch.arange(n, device="cuda")[None, :] % 2))
+    return x.contiguous(), w.contiguous()
+
+
 def check_hlog_qmatmul(K, gen) -> dict:
     from repro_torch.core.quantizers import hlog_project
+    from repro_torch.kernels.hlog_qmatmul import HLOG_BM, hlog_tiling
 
     dev = "cuda"
     # the predictor product of path (d): 8 prompts x 384 rows, 768 x 768
     M, Kd, N = 3072, 768, 768
     cases = []
-    for name, (m, k, n) in (("path", (M, Kd, N)), ("ragged", (200, 768, 300)),
-                            ("K_4096", (256, 4096, 256))):
-        xq, wq = _codes((m, k), gen), _codes((k, n), gen)
-        err = _max_err(K.hlog_qmatmul(xq, wq), K.hlog_qmatmul_plain(xq, wq))
-        if err != 0.0:
+    shapes = [("path", (M, Kd, N)), ("ragged", (200, 768, 300)),
+              ("K_4096", (256, 4096, 256)), ("K_8200", (130, 8200, 70)),
+              # under one tile in every dimension; K no multiple of 4
+              ("ragged_under_one_tile", (127, 31, 191)),
+              ("ragged_tiny", (37, 19, 45)),
+              ("all_127_K_256", (128, 256, 192)),
+              ("all_127_K_1024", (128, 1024, 192)),
+              ("all_127_K_1025", (130, 1025, 70)),
+              ("alternating_K_1025", (256, 1025, 192)),
+              ("alternating_K_4096", (128, 4096, 128))]
+    for name, (m, k, n) in shapes:
+        if name.startswith(("all_127", "alternating")):
+            xq, wq = _hlog_worst(name, m, k, n)
+        else:
+            xq, wq = _codes((m, k), gen), _codes((k, n), gen)
+        before = K.hlog_qmatmul.launches
+        got = K.hlog_qmatmul(xq, wq)
+        launched = K.hlog_qmatmul.launches - before
+        err = _max_err(got, K.hlog_qmatmul_plain(xq, wq))
+        if err != 0.0 or launched != 1:
             _fail(f"hlog_qmatmul case {name}: max |err| {err} != 0 (both "
-                  f"round one exact integer sum)")
+                  f"round one exact integer sum) or {launched} launches")
         cases.append({"case": name, "M": m, "K": k, "N": n,
-                      "max_abs_err": err, "tolerance": 0.0})
+                      "bn": hlog_tiling(m, n), "max_abs_err": err,
+                      "max_abs": float(got.abs().max()), "tolerance": 0.0})
     v = torch.arange(-127, 128, dtype=torch.float32, device=dev)[:, None]
     one = torch.ones(1, 1, device=dev)
     err = max(_max_err(K.hlog_qmatmul(v, one), hlog_project(v)),
@@ -569,31 +688,53 @@ def check_hlog_qmatmul(K, gen) -> dict:
                   "tolerance": 0.0})
     sets = [(_codes((M, Kd), gen), _codes((Kd, N), gen))
             for _ in range(_n_sets((M * Kd + Kd * N) * 4))]
-    ms = _time_ms(K.hlog_qmatmul, sets)
-    plain_ms = _time_ms(K.hlog_qmatmul_plain, sets)
-    lib_ms = _time_ms(torch.matmul, [(hlog_project(x), hlog_project(w))
-                                     for x, w in sets])
+    proj = [(hlog_project(x), hlog_project(w)) for x, w in sets]
+    t = _timings(K.hlog_qmatmul, K.hlog_qmatmul_plain, torch.matmul, sets,
+                 ("hlog_project_kernel", "hlog_qmatmul_kernel"), proj)
+    bf16 = [(x.bfloat16(), w.bfloat16()) for x, w in proj]
+    t["library_bf16_ms"] = _time_ms(torch.matmul, bf16)
+    t["library_bf16_kernel_ms"] = _device_ms(torch.matmul, bf16)
     ops = 2.0 * M * Kd * N
     peak = BF16_FLOPS if Kd <= 1024 else FP32_FLOPS
     flop_s = ops / peak
     byte_s = (M * Kd + Kd * N + M * N) * 4 / HBM_BYTES_PER_S
-    # the simple kernel's own limit, worked out, not measured: apart from
-    # the kernels line, which holds measured times and the bound
+    # the design's own limit, worked out, not measured (apart from the
+    # kernels line, which holds measured times and the bound): its bf16
+    # tensor-core products; its projection pass -- each code read once as
+    # float32 and its level written once as bf16, over the card's memory
+    # rate, and 3 integer operations (byte permute, add, and) per pair;
+    # whichever takes longest
+    bn = hlog_tiling(M, N)
+    codes = M * Kd + Kd * N
+    tc_s = ops / BF16_FLOPS
+    proj_bytes_s = 6 * codes / HBM_BYTES_PER_S
+    proj_int_s = 1.5 * codes / INT32_OPS
     print(json.dumps({"design_limit": {
         "kernel": "hlog_qmatmul", "shape": {"M": M, "K": Kd, "N": N},
-        "ms": 1e3 * ops / INT32_OPS,
-        "by": "int32 IMAD on the CUDA cores, 33.5 TOP/s"}}))
+        "tile": [HLOG_BM, bn],
+        "ms": 1e3 * max(tc_s, proj_bytes_s, proj_int_s),
+        "tensor_core_ms": 1e3 * tc_s,
+        "projection_bytes_ms": 1e3 * proj_bytes_s,
+        "projection_int_ms": 1e3 * proj_int_s,
+        "operand_bytes_from_l2": 2 * (M * Kd * -(-N // bn)
+                                      + Kd * N * -(-M // HLOG_BM)),
+        "by": "the largest of the bf16 tensor-core products at 989 TFLOP/s, "
+              "the projection pass's bytes (4 read + 2 written per code) "
+              "at 3.35 TB/s and its integer work (1.5 operations a code) "
+              "at 33.5 TOP/s; the product's operand reads from L2 are not "
+              "in it"}}))
     return {"name": "hlog_qmatmul", "route": "cuda",
             "source": "src/repro_torch/csrc/hlog_qmatmul.cu",
             "replaces": "src/repro/kernels/hlog_qmatmul.py:57",
-            "shape": {"M": M, "K": Kd, "N": N},
+            "shape": {"M": M, "K": Kd, "N": N}, "tile": [HLOG_BM, bn],
             "max_abs_err": max(c["max_abs_err"] for c in cases),
-            "tolerance": 0.0,
-            "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
-            "library_ms": lib_ms,
+            "tolerance": 0.0, **t,
             "library": "torch.matmul of the projected operands (float32, "
                        "TF32 off): a floor for a library route, which "
                        "would also have to project",
+            "library_bf16": "torch.matmul of the projected operands in "
+                            "bf16 (the same integers up to K 1024 inside; "
+                            "its bf16 output rounds them): a second floor",
             "bound_ms": 1e3 * max(flop_s, byte_s),
             "bound_by": "operations" if flop_s >= byte_s else "bytes",
             "bound_peak": ("989 TFLOP/s dense bf16: HLog levels are exact "
@@ -640,11 +781,12 @@ def check_local_similarity(K, gen) -> dict:
     in_bytes = B * H * L * Lk * 4
     sets = [(_spa_like((B, H, L, Lk), gen),)
             for _ in range(_n_sets(in_bytes))]
-    ms = _time_ms(lambda x: K.local_similarity_dist(x, w), sets)
-    plain_ms = _time_ms(lambda x: K.local_similarity_plain(x, w), sets)
     nwin = B * H * L // w
-    lib_ms = _time_ms(lambda x: torch.cdist(x, x, p=1),
-                      [(x.view(nwin, w, Lk),) for (x,) in sets])
+    t = _timings(lambda x: K.local_similarity_dist(x, w),
+                 lambda x: K.local_similarity_plain(x, w),
+                 lambda x: torch.cdist(x, x, p=1), sets,
+                 "local_similarity_kernel",
+                 [(x.view(nwin, w, Lk),) for (x,) in sets])
     byte_s = (in_bytes + nwin * w * w * 4) / HBM_BYTES_PER_S
     flop_s = 3.0 * w * w * Lk * nwin / FP32_FLOPS
     return {"name": "local_similarity_dist", "route": "cuda",
@@ -654,8 +796,7 @@ def check_local_similarity(K, gen) -> dict:
                       "nonzero_per_row": math.ceil(0.12 * Lk)},
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "tolerance": "1e-5 * max(1, max|plain|)",
-            "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
-            "library_ms": lib_ms,
+            **t,
             "library": "torch.cdist(x, x, p=1) on the (B*H*L/w, w, Lk) view",
             "bound_ms": 1e3 * max(flop_s, byte_s),
             "bound_by": "operations" if flop_s >= byte_s else "bytes",
@@ -917,6 +1058,7 @@ def _layer_checks(K, cfg, ctx, bp, xn) -> dict:
             _fail(f"predict_matmul on {name}: {exact} vs the plain version "
                   f"(must be 0), {err} vs the predictor product (> {tol})")
         out[f"hlog_{name}_err"] = err
+        out[f"hlog_{name}_vs_plain_err"] = exact
     spa, _ = ctx.exact_spa(bp["attn"], xn)
     B, L = xn.shape[0], xn.shape[1]
     spa4 = spa.reshape(B, -1, L, L)
@@ -1092,6 +1234,10 @@ def main() -> int:
             f"{f['function']}: {f['registers']} registers, spill stores "
             f"{f['spill_stores']} B, loads {f['spill_loads']} B"
             for f in fns))
+        # e.g. a wait that ptxas put in to serialize wgmma products
+        for ln in _build.build_log(name).splitlines():
+            if "C7517" in ln or "Performance Loss" in ln:
+                print(f"  {name}: {ln.strip()}")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = [check_gathered_matmul(K, gen), check_gather_rows(K, gen),

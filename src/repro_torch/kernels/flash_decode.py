@@ -3,7 +3,12 @@
 ``flash_decode`` runs the CUDA kernel ``csrc/flash_decode.cu``, which
 replaces the Pallas TPU kernel ``repro/kernels/flash_decode.py::
 flash_decode``; the source says what bounds it on the card and what its
-design does about that.
+design does about that.  The kernel splits each row's live cache range
+across the blocks of a thread-block cluster and merges their partial
+softmax states in split order: :func:`decode_split_count` picks the number
+of splits from the shapes (never from ``pos``, which lies on the card), and
+:func:`decode_split_ranges` is the kernel's own cut of a row's live slots,
+written out for the tests.
 
 Layout: ``q (B, KV, G, Dh)`` one token per row; ``k / v (B, KV, S, Dh)``
 the caches; ``pos (B,)`` int32 the current write index, attended
@@ -17,17 +22,48 @@ only for CPU tensors; CUDA tensors launch the kernel or raise.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import torch
 
-from .gathered_matmul import _check, _fn, _launch
+from .gathered_matmul import H100_SMS, _check, _fn, _launch
 
-__all__ = ["flash_decode", "flash_decode_plain"]
+__all__ = ["flash_decode", "flash_decode_plain", "decode_split_count",
+           "decode_split_ranges"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+# the CUDA kernel's limits and split policy (csrc/flash_decode.cu)
+DECODE_MAX_G = 8                # query rows per kv head
+DECODE_MAX_DH = 256             # head width
+DECODE_MAX_SPLITS = 8           # splits form one cluster (portable size)
+DECODE_MIN_SPLIT_SLOTS = 16     # slots a split gets at the least
+
+
+def decode_split_count(pairs: int, S: int,
+                       window: Optional[int] = None) -> int:
+    """Splits of the cache axis for ``pairs = B * KV`` (b, kv head) pairs
+    over a cache of ``S`` slots: enough blocks for about 8 per SM, at most
+    8, and none that would get fewer than 16 of the most live slots a row
+    can have (``min(S, window)``)."""
+    live = S if window is None else min(S, window)
+    by_card = -(-8 * H100_SMS // max(1, pairs))
+    by_slots = -(-live // DECODE_MIN_SPLIT_SLOTS)
+    return max(1, min(DECODE_MAX_SPLITS, by_card, by_slots))
+
+
+def decode_split_ranges(pos: int, S: int, window: Optional[int],
+                        nsplit: int) -> List[Tuple[int, int]]:
+    """The kernel's cut of one row's live slots ``[max(0, pos - window +
+    1), min(pos, S - 1)]`` into ``nsplit`` contiguous shares, in split
+    order: ``[(start, end), ...]`` with ``end`` exclusive (empty shares
+    have ``start == end``)."""
+    lo = max(0, pos - window + 1) if window is not None else 0
+    n = max(0, min(pos, S - 1) - lo + 1)
+    chunk = -(-n // nsplit)
+    return [(lo + min(n, r * chunk), lo + min(n, (r + 1) * chunk))
+            for r in range(nsplit)]
 
 
 def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -80,12 +116,17 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"window must be positive, got {window}")
     if softcap is not None and softcap <= 0:
         raise ValueError(f"softcap must be positive, got {softcap}")
+    if G > DECODE_MAX_G or Dh > DECODE_MAX_DH:
+        raise ValueError(f"flash_decode takes G <= {DECODE_MAX_G} query rows "
+                         f"per kv head and Dh <= {DECODE_MAX_DH}, got G {G}, "
+                         f"Dh {Dh}")
     out = torch.empty_like(q)
     fn = _fn("flash_decode", "flash_decode_f32",
-             (_P,) * 5 + (_I,) * 5 + (_F, _F, _I, _P))
+             (_P,) * 5 + (_I,) * 5 + (_F, _F, _I, _I, _P))
     _launch(fn, dev, "flash_decode", q.data_ptr(), k.data_ptr(), v.data_ptr(),
             pos.data_ptr(), out.data_ptr(), B, KV, G, S, Dh, Dh ** -0.5,
-            softcap or 0.0, window or 0)
+            softcap or 0.0, window or 0,
+            decode_split_count(B * KV, S, window))
     flash_decode.launches += 1
     return out
 

@@ -4,18 +4,24 @@ attention predictor.
 ``hlog_qmatmul(xq, wq)`` computes ``hlog(xq) @ hlog(wq)`` on the 8-bit
 codes of the activations and a projection weight (CUDA source
 ``csrc/hlog_qmatmul.cu``; it replaces the Pallas TPU kernel
-``repro/kernels/hlog_qmatmul.py::hlog_qmatmul``).  The source says what
-bounds it on the card and what its design does about that.
+``repro/kernels/hlog_qmatmul.py::hlog_qmatmul``): a first pass writes the
+operands' HLog levels once as bf16 into a workspace, and the product runs
+on the bf16 tensor cores (wgmma), its float32 sums drained into int32
+every 256 of K.  :func:`hlog_tiling` picks the product's output tile.  The
+source says what bounds it on the card and what its design does about
+that.
 
 Contract, as the reference states it: ``xq (M, K)`` and ``wq (K, N)`` are
 integer-valued float32 in ``[-127, 127]`` (``symmetric_quantize`` codes).
-Every HLog level of that grid is an integer and every product at most
-16384, so the kernel sums exactly in int32 (for K < 131072) and rounds
-once at the store; :func:`hlog_qmatmul_plain` takes the float64 product
-of the projected operands and rounds once, so the two agree bit for bit.
-For K <= 1024 both also equal the reference's float32 product, whose
-partial sums are then exact.  The wrapper checks dtype, device, rank and
-shapes; it does not scan values.
+Every HLog level of that grid is an integer exact in bf16 and every
+product at most 16384, so the kernel's sums are exact integers (the
+float32 accumulators never pass 2^22 before they are drained; the int32
+sums hold for K < 131072) and it rounds once at the store;
+:func:`hlog_qmatmul_plain` takes the float64 product of the projected
+operands and rounds once, so the two agree bit for bit.  For K <= 1024
+both also equal the reference's float32 product, whose partial sums are
+then exact.  The wrapper checks dtype, device, rank and shapes; it does
+not scan values.
 """
 
 from __future__ import annotations
@@ -26,13 +32,33 @@ import torch
 
 from repro_torch.core.quantizers import hlog_project
 
-from .gathered_matmul import _check, _fn, _launch
+from .gathered_matmul import H100_SMS, _check, _fn, _launch
 
-__all__ = ["hlog_qmatmul", "hlog_qmatmul_plain"]
+__all__ = ["hlog_qmatmul", "hlog_qmatmul_plain", "hlog_tiling"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_MAX_ROWS = 65535 * 64          # the kernel's grid.y limit x its row tile
+# the CUDA kernel's tiles (csrc/hlog_qmatmul.cu)
+HLOG_BM = 128                   # output rows per block: 2 warpgroups x 64
+HLOG_BNS = (192, 128, 64)       # output tile widths it is built for
+_MAX_ROWS = 65535 * HLOG_BM     # the kernel's grid.y limit x its row tile
+
+
+def hlog_tiling(M: int, N: int) -> int:
+    """The output tile width ``BN`` for an ``(M, N)`` product.
+
+    Each block reads ``HLOG_BM + BN`` operand levels per unit of K, and one
+    block runs per SM, so the busiest SM reads ``waves * (HLOG_BM + BN)``:
+    the width with the least of that wins, ties to the wider tile.  At the
+    predictor's (3072, 768): 192 (96 tiles, one wave) over 128 (144 tiles,
+    two waves)."""
+    best = None
+    for bn in HLOG_BNS:
+        tiles = -(-M // HLOG_BM) * -(-N // bn)
+        cost = -(-tiles // H100_SMS) * (HLOG_BM + bn)
+        if best is None or cost < best[0]:
+            best = (cost, bn)
+    return best[1]
 
 
 def hlog_qmatmul_plain(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
@@ -63,9 +89,12 @@ def hlog_qmatmul(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
                          f"{_MAX_ROWS} and K < 131072 (exact int32 sums), "
                          f"got ({M}, {K}) @ ({K2}, {N})")
     out = torch.empty((M, N), dtype=torch.float32, device=dev)
-    fn = _fn("hlog_qmatmul", "hlog_qmatmul_f32", (_P,) * 3 + (_I,) * 3 + (_P,))
+    # the levels in bf16, x as (M, Kp) and w transposed as (N, Kp)
+    ws = torch.empty((M + N) * (-(-K // 8) * 8), dtype=torch.bfloat16,
+                     device=dev)
+    fn = _fn("hlog_qmatmul", "hlog_qmatmul_f32", (_P,) * 4 + (_I,) * 4 + (_P,))
     _launch(fn, dev, "hlog_qmatmul", xq.data_ptr(), wq.data_ptr(),
-            out.data_ptr(), M, K, N)
+            ws.data_ptr(), out.data_ptr(), M, K, N, hlog_tiling(M, N))
     hlog_qmatmul.launches += 1
     return out
 

@@ -8,8 +8,9 @@ Tolerances: plain versions vs Pallas rtol = atol = 1e-5 (float64 vs float32
 sums in another order); on the card ``flash_attention`` vs its plain
 version 1e-6 x max(1, max |plain|) (both accumulate in float64 and round
 once), ``flash_decode`` vs its plain version 1e-5 (online vs two-pass
-float32 softmax); the float64 emulation of the kernel's tiled online
-softmax equals the plain version bit for bit.
+float32 softmax), and so is the float32 emulation of the decode kernel's
+split-and-merge order; the float64 emulation of the attention kernel's
+tiled online softmax equals the plain version bit for bit.
 
 The machine with the card has no JAX, so this file also imports without
 it: the ``cuda`` tests run there (``PYTHONPATH=src python -m pytest -m cuda
@@ -23,6 +24,8 @@ import pytest
 import torch
 
 from repro_torch import kernels as K
+from repro_torch.kernels.flash_decode import (decode_split_count,
+                                              decode_split_ranges)
 
 try:
     import jax  # noqa: F401
@@ -232,6 +235,29 @@ DECODE_CASES = {
 }
 
 
+# the split kernel's edges: without a window these rows split 8 ways, 64
+# slots a split at S 512; the windows are shorter than that, and exactly it
+DECODE_SPLIT_CASES = {
+    "B_1": dict(pos=[390], S=512, KV=4, Dh=64),
+    "B_64": dict(pos=list(range(0, 512, 8)), S=512, Dh=16),
+    "pos_S_minus_1": dict(pos=[511, 511], S=512, Dh=64),
+    "window_under_one_split": dict(pos=[390, 511, 3], S=512, Dh=64,
+                                   window=40),
+    "window_one_split": dict(pos=[390, 511, 63], S=512, Dh=64, window=64),
+    "gqa_g8": dict(pos=[390, 200], S=512, G=8, Dh=64, window=100),
+    "dh_128": dict(pos=[390, 17], S=512, Dh=128),
+    "dh_256_softcap": dict(pos=[299, 17], S=300, Dh=256, softcap=5.0,
+                           q_scale=4.0),
+    "dh_20_scalar": dict(pos=[390, 0, 45], S=512, Dh=20),
+    "dh_20_gqa_g4": dict(pos=[47, 5], G=4, Dh=20, window=20),
+}
+
+
+def _decode_case_inputs(c: dict, seed: int):
+    return _decode_inputs(c, seed, KV=c.get("KV", 2), Dh=c.get("Dh", 16),
+                          S=c.get("S", 48))
+
+
 def _decode_inputs(c: dict, seed: int, KV=2, Dh=16, S=48):
     r = np.random.default_rng(seed)
     B, G = len(c["pos"]), c.get("G", 1)
@@ -252,6 +278,113 @@ def test_flash_decode_plain_vs_pallas(reference, case):
     got = K.flash_decode_plain(*(t(a) for a in inp), **kw)
     assert np.isfinite(n(got)).all()
     np.testing.assert_allclose(n(got), np.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize("pairs,S,window,want", [
+    (48, 512, None, 8), (12, 512, None, 8), (768, 512, None, 2),
+    (4096, 512, None, 1), (48, 512, 40, 3), (48, 512, 5, 1),
+    (48, 48, None, 3), (6, 1, None, 1)])
+def test_decode_split_count(pairs, S, window, want):
+    """About 8 blocks per SM, at most 8 splits, none under 16 live slots."""
+    assert decode_split_count(pairs, S, window) == want
+
+
+@pytest.mark.parametrize("S,window", [(48, None), (512, None), (512, 40),
+                                      (512, 64), (300, 100), (7, 3)])
+@pytest.mark.parametrize("nsplit", [1, 3, 8])
+def test_decode_split_ranges_cover_the_live_range_once(S, window, nsplit):
+    """Every slot of the live range exactly once, in order, in contiguous
+    near-equal shares; nothing outside it."""
+    for pos in [-1, 0, 1, 5, S // 2, S - 2, S - 1, S, S + 10]:
+        lo = 0 if window is None else max(0, pos - window + 1)
+        live = list(range(lo, min(pos, S - 1) + 1))
+        ranges = decode_split_ranges(pos, S, window, nsplit)
+        assert len(ranges) == nsplit
+        got = [j for a, b in ranges for j in range(a, b)]
+        assert got == live
+        sizes = [b - a for a, b in ranges]
+        assert all(0 <= x <= -(-len(live) // nsplit) for x in sizes)
+        assert sizes == sorted(sizes, reverse=True)     # empty shares last
+        assert all(b0 == a1 for (_, b0), (a1, _) in zip(ranges, ranges[1:]))
+
+
+def _pow2_at_least(x: int) -> int:
+    p = 1
+    while p < x:
+        p <<= 1
+    return p
+
+
+def _split_merge_emulation(q, k, v, pos, softcap=None, window=None):
+    """The decode kernel's order in float32: per (b, kv head) the live range
+    cut by ``decode_split_ranges``; in each split, 128 / R row groups take
+    the slots in turn, U at a time, each with its own online softmax;
+    the groups merge in group order, then the splits in split order."""
+    q, k, v = (np.asarray(a, np.float32) for a in (q, k, v))
+    B, KV, G, Dh = q.shape
+    S = k.shape[2]
+    nsplit = decode_split_count(B * KV, S, window)
+    lanes = Dh // 4 if Dh % 4 == 0 else Dh
+    R = min(32, _pow2_at_least(lanes))
+    E = (4 if Dh % 4 == 0 else 1) * _pow2_at_least(-(-lanes // R))
+    NG, U = 128 // R, 2 if E >= 8 else 4
+    scale = np.float32(Dh ** -0.5)
+    out = np.zeros_like(q)
+
+    def merge(ms, ls, accs):
+        M = ms.max(0)
+        w = np.where(ms == -np.inf, 0.0,
+                     np.exp(ms - np.where(M == -np.inf, 0.0, M)))
+        w = w.astype(np.float32)
+        return M, (ls * w).sum(0), (accs * w[..., None]).sum(0)
+
+    for b in range(B):
+        for h in range(KV):
+            parts = []
+            for s0, s1 in decode_split_ranges(int(pos[b]), S, window,
+                                              nsplit):
+                m = np.full((NG, G), -np.inf, np.float32)
+                l = np.zeros((NG, G), np.float32)
+                acc = np.zeros((NG, G, Dh), np.float32)
+                for it in range(-(-(s1 - s0) // (NG * U))):
+                    j = (s0 + it * NG * U + np.arange(NG)[:, None]
+                         + np.arange(U)[None, :] * NG)        # (NG, U)
+                    ok = j < s1
+                    jj = np.where(ok, j, 0)
+                    sc = np.einsum("gd,rud->rgu", q[b, h], k[b, h][jj])
+                    sc = sc * scale
+                    if softcap is not None:
+                        sc = np.tanh(sc / softcap) * softcap
+                    sc = np.where(ok[:, None, :], sc, -np.inf)
+                    mx = np.maximum(m, sc.max(-1))
+                    live = mx != -np.inf
+                    mxs = np.where(live, mx, 0.0)
+                    c = np.where(live, np.exp(m - mxs), 1.0)
+                    pr = np.exp(sc - mxs[..., None])
+                    l = np.where(live, l * c + pr.sum(-1), l)
+                    acc = np.where(live[..., None], acc * c[..., None]
+                                   + np.einsum("rgu,rud->rgd", pr,
+                                               v[b, h][jj]), acc)
+                    m = np.where(live, mx, m)
+                parts.append(merge(m, l, acc))
+            M, L, A = merge(*(np.stack(x) for x in zip(*parts)))
+            out[b, h] = np.where(L[:, None] > 0, A / np.where(
+                L[:, None] > 0, L[:, None], 1.0), 0.0)
+    return out
+
+
+@pytest.mark.parametrize("case", list(DECODE_CASES)
+                         + list(DECODE_SPLIT_CASES))
+def test_flash_decode_split_merge_emulation(case):
+    """The kernel's split-and-merge order in float32 against the plain
+    version, within 1e-5."""
+    c = {**DECODE_CASES, **DECODE_SPLIT_CASES}[case]
+    q, k, v, pos = _decode_case_inputs(c, seed=len(case))
+    kw = dict(softcap=c.get("softcap"), window=c.get("window"))
+    got = _split_merge_emulation(q, k, v, pos, **kw)
+    want = n(K.flash_decode_plain(t(q), t(k), t(v), t(pos), **kw))
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
 
 
 def test_flash_decode_cpu_takes_the_plain_version():
@@ -343,16 +476,22 @@ def test_flash_attention_kernel_wide_grid(cuda_device, case, Dh, L):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", list(DECODE_CASES))
+@pytest.mark.parametrize("case", list(DECODE_CASES)
+                         + list(DECODE_SPLIT_CASES))
 def test_flash_decode_kernel_vs_plain(cuda_device, case):
-    c = DECODE_CASES[case]
-    inp = [t(a).to(cuda_device) for a in _decode_inputs(c, seed=len(case))]
+    """Also the split kernel's edges: B 1 and 64, pos S-1, windows under
+    and at one split, G 8, Dh 128 and 256, the scalar path at Dh 20."""
+    c = {**DECODE_CASES, **DECODE_SPLIT_CASES}[case]
+    inp = [t(a).to(cuda_device)
+           for a in _decode_case_inputs(c, seed=len(case))]
     kw = dict(softcap=c.get("softcap"), window=c.get("window"))
     before = K.flash_decode.launches
     got = K.flash_decode(*inp, **kw)
     torch.cuda.synchronize()
     assert K.flash_decode.launches == before + 1
-    torch.testing.assert_close(got, K.flash_decode_plain(*inp, **kw), **TOL)
+    assert torch.isfinite(got).all()
+    assert float((got - K.flash_decode_plain(*inp, **kw)).abs().max()) \
+        <= 1e-5
 
 
 @pytest.mark.cuda
@@ -369,3 +508,10 @@ def test_flash_wrappers_reject_bad_inputs(cuda_device):
     with pytest.raises(TypeError):
         K.flash_decode(q, q, q, torch.zeros(1, dtype=torch.long,
                                             device=cuda_device))
+    pos = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="G <= 8"):
+        big = torch.zeros(1, 1, 9, 16, device=cuda_device)
+        K.flash_decode(big, k[:, :1], k[:, :1], pos)
+    with pytest.raises(ValueError, match="Dh <= 256"):
+        wide = torch.zeros(1, 1, 1, 260, device=cuda_device)
+        K.flash_decode(wide, wide, wide, pos)

@@ -6,9 +6,11 @@ and -- on a card only -- the CUDA kernels against their plain versions.
 
 Tolerances: the HLog product is exact (integer levels, float64 or int32
 sums rounded once; for K <= 1024 the reference's float32 sums are exact
-too); the window distances agree to ``1e-5 * max(1, max |ref|)`` (float32
-sums in another order); attention to rtol = atol = 1e-5 (the port's plain
-flash version sums in float64).
+too; the CUDA kernel's bf16 tensor-core sums are drained into int32 every
+256 of K, which the float32 / int64 emulation here repeats); the window
+distances agree to ``1e-5 * max(1, max |ref|)`` (float32 sums in another
+order); attention to rtol = atol = 1e-5 (the port's plain flash version
+sums in float64).
 
 The machine with the card has no JAX, so this file also imports without
 it: the ``cuda`` tests run there (``PYTHONPATH=src python -m pytest -m cuda
@@ -25,6 +27,7 @@ from repro_torch import kernels as K
 from repro_torch.core.quantizers import hlog_project, symmetric_quantize
 from repro_torch.kernels import local_similarity as tls
 from repro_torch.kernels import ops
+from repro_torch.kernels.hlog_qmatmul import HLOG_BM, HLOG_BNS, hlog_tiling
 
 try:
     import jax  # noqa: F401
@@ -115,6 +118,85 @@ def test_hlog_projection_on_the_int8_grid(reference):
     np.testing.assert_array_equal(
         got, np.asarray(_hlog_project_inkernel(jnp.asarray(v))))
     np.testing.assert_array_equal(got, n(hlog_project(t(v))))
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel's arithmetic, on the CPU: tiles, bit rule, drained sums
+# ---------------------------------------------------------------------------
+
+def _worst_codes(kind: str, M: int, Kd: int, N: int):
+    """All codes 127 (every product 16384, every sum Kd * 16384), or 127
+    with signs alternating by (row + column) and along K in runs of 300, so
+    the partial sums climb, fall back and change sign across the drains."""
+    x = np.full((M, Kd), 127.0, np.float32)
+    w = np.full((Kd, N), 127.0, np.float32)
+    if kind == "alternating":
+        i, j = np.arange(M)[:, None], np.arange(Kd)[None, :]
+        x *= 1 - 2 * ((i + j // 300) % 2)
+        w *= 1 - 2 * (np.arange(N)[None, :] % 2)
+    return x, w
+
+
+# Kd 256 sums to 2^22 exactly, 1024 to 2^24, 1025 past it
+HLOG_WORST = [("all_127", 128, 256, 192), ("all_127", 128, 1024, 192),
+              ("all_127", 130, 1025, 70), ("alternating", 256, 1025, 192),
+              ("alternating", 64, 4096, 96), ("all_127", 16, 8200, 8)]
+
+
+@pytest.mark.parametrize("M,N,bn", [(3072, 768, 192), (384, 768, 64),
+                                    (1408, 1536, 128), (200, 300, 64),
+                                    (1, 1, 64), (8 * 3072, 768, 192),
+                                    (3072, 3072, 192)])
+def test_hlog_tiling(M, N, bn):
+    """The fewest waves of 128 x BN tiles times the levels a tile reads
+    per K; ties to the wider tile."""
+    assert hlog_tiling(M, N) == bn
+
+    def cost(b):
+        tiles = -(-M // HLOG_BM) * -(-N // b)
+        return -(-tiles // 132) * (HLOG_BM + b)
+
+    assert bn in HLOG_BNS
+    assert cost(bn) == min(cost(b) for b in HLOG_BNS)
+    assert all(cost(b) > cost(bn) for b in HLOG_BNS if b > bn)
+
+
+def _bf16_bit_rule(v: np.ndarray) -> np.ndarray:
+    """The kernel's projection: the top half of the float32 bits (the bf16
+    of an integer of magnitude <= 255, exactly), + 0x20, & 0xffc0."""
+    hi = (np.asarray(v, np.float32).view(np.uint32) >> 16).astype(np.uint32)
+    bits = ((hi + 0x20) & 0xFFC0) << 16
+    return bits.astype(np.uint32).view(np.float32)
+
+
+def test_hlog_bf16_bit_rule_on_the_int8_grid():
+    """All 255 codes: the kernel's bit rule gives ``hlog_project``'s level,
+    and every level is exact in bf16."""
+    v = np.arange(-127, 128, dtype=np.float32)
+    want = n(hlog_project(t(v)))
+    np.testing.assert_array_equal(_bf16_bit_rule(v), want)
+    np.testing.assert_array_equal(
+        n(t(want).bfloat16().float()), want)
+
+
+@pytest.mark.parametrize("kind,M,Kd,N", HLOG_WORST)
+def test_hlog_drained_sums_match_plain_bitwise(kind, M, Kd, N):
+    """The kernel's order: float32 sums of bf16-exact levels over K chunks
+    of 256 (each an exact integer of magnitude <= 2^22), drained into an
+    integer sum, converted to float32 once: the plain version's bits."""
+    x, w = _worst_codes(kind, M, Kd, N)
+    xl, wl = hlog_project(t(x)), hlog_project(t(w))
+    assert torch.equal(xl.bfloat16().float(), xl)
+    total = torch.zeros(M, N, dtype=torch.int64)
+    for k0 in range(0, Kd, 256):
+        part = xl[:, k0:k0 + 256] @ wl[k0:k0 + 256]        # float32
+        assert float(part.abs().max()) <= 2 ** 22
+        assert torch.equal(part, part.round())
+        total += part.to(torch.int64)
+    got = total.float()
+    assert torch.equal(got, K.hlog_qmatmul_plain(t(x), t(w)))
+    if kind == "all_127":
+        assert float(got.abs().max()) == Kd * 16384
 
 
 LSD_SHAPES = [(64, 128, 8), (64, 256, 8), (128, 128, 4), (96, 384, 8)]
@@ -240,9 +322,13 @@ def test_bad_inputs_raise():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M,Kd,N", [(3072, 768, 768), (200, 768, 300),
-                                    (256, 4096, 256), (1, 1, 1),
-                                    (67, 33, 65)])
+@pytest.mark.parametrize("M,Kd,N", [
+    (3072, 768, 768), (200, 768, 300), (256, 4096, 256), (1, 1, 1),
+    (67, 33, 65),
+    # long K (many drains of the bf16 kernel's sums), ragged M, N and K
+    # under one tile, and a shape for each tile width hlog_tiling picks
+    (64, 4096, 64), (130, 8200, 70), (127, 31, 191), (37, 19, 45),
+    (5, 3, 2), (128, 32, 64), (1408, 64, 1536), (384, 64, 768)])
 def test_hlog_qmatmul_kernel_vs_plain(cuda_device, M, Kd, N):
     xq = t(_codes((M, Kd), M)).to(cuda_device)
     wq = t(_codes((Kd, N), N)).to(cuda_device)
@@ -251,6 +337,20 @@ def test_hlog_qmatmul_kernel_vs_plain(cuda_device, M, Kd, N):
     torch.cuda.synchronize()
     assert K.hlog_qmatmul.launches == before + 1
     # int32 sums and float64 sums round the same exact integer once
+    assert torch.equal(got, K.hlog_qmatmul_plain(xq, wq))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,M,Kd,N", HLOG_WORST)
+def test_hlog_qmatmul_kernel_worst_sums(cuda_device, kind, M, Kd, N):
+    """Sums at, near and past 2^24 and alternating signs: bit-equal to the
+    plain version, one launch."""
+    x, w = _worst_codes(kind, M, Kd, N)
+    xq, wq = t(x).to(cuda_device), t(w).to(cuda_device)
+    before = K.hlog_qmatmul.launches
+    got = K.hlog_qmatmul(xq, wq)
+    torch.cuda.synchronize()
+    assert K.hlog_qmatmul.launches == before + 1
     assert torch.equal(got, K.hlog_qmatmul_plain(xq, wq))
 
 
