@@ -6,22 +6,26 @@
 // dense fixed-slot serving engine, once per layer (model.decode_step ->
 // attention_decode -> the cuda_flash_decode backend).
 //
-// Inputs (float32 unless noted, all contiguous):
+// Inputs (all contiguous, q / k / v / out of one type, float32 or bf16):
 //   q (B, KV, G, Dh) one token per row; k / v (B, KV, S, Dh) caches;
 //   pos (B,) int32 the current write index (inclusive).
-// Output (B, KV, G, Dh).  Slot j of row b is attended iff j <= pos[b] and,
-// with a window, pos[b] - j < window.  Scores are scaled, softcapped and
-// softmaxed in float32 (decode builds no SPLS plan, so float32 is safe);
-// a row with no live slot gives zeros.
+// Output (B, KV, G, Dh) in q's type.  Slot j of row b is attended iff j <=
+// pos[b] and, with a window, pos[b] - j < window.  Elements are cast to
+// float32 on load, as the Pallas kernel casts its tiles; scores are
+// scaled, softcapped and softmaxed in float32; a row with no live slot
+// gives zeros.  Any G: the rows of a kv head go through in passes of at
+// most decode::GM (8), each pass walking the block's share again (the
+// second walk reads from L2).  Dh <= 256.
 //
 // What bounds it on an H100: the bytes of the live K/V slots (2 * live *
-// KV * Dh * 4 over all rows) plus q and out, over 3.35 TB/s: 2.9 us at the
-// dense engine's shape (B 4, KV 12, Dh 64, about 400 live slots a row).
-// The operations are ~1 FLOP/byte.  So what limits it is keeping enough
-// loads in flight on enough SMs: one block per (b, kv head) gives 48 blocks
-// for 132 SMs there, and a serial walk over the cache inside each.
+// KV * Dh * element size over all rows) plus q and out, over 3.35 TB/s:
+// 2.9 us at the dense engine's shape (B 4, KV 12, Dh 64, about 400 live
+// slots a row, float32).  The operations are ~1 FLOP/byte.  So what limits
+// it is keeping enough loads in flight on enough SMs: one block per (b, kv
+// head) gives 48 blocks for 132 SMs there, and a serial walk over the cache
+// inside each.
 //
-// Design:
+// Design (decode_common.cuh holds the parts shared with paged_decode.cu):
 //  - The live slots of row b, [max(0, pos[b] - window + 1), min(pos[b],
 //    S - 1)], are cut into nsplit contiguous, near-equal shares (nsplit 1
 //    to 8, chosen by decode_split_count in kernels/flash_decode.py from
@@ -30,44 +34,43 @@
 //    A block reads no slot outside its share, so no slot outside the live
 //    range: the role of the Pallas kernel's block skips.
 //  - Inside a block (4 warps), a row group of R lanes holds one K / V row:
-//    at Dh 64, 16 lanes of one float4 each (16-byte loads; a Dh that is no
-//    multiple of 4, or a misaligned tensor, takes 4-byte loads, one float
-//    per lane).  The row groups take the share's slots in turn, each group
-//    U slots at once (all their K and V loads in flight together); a dot
-//    product is a shuffle reduction over the group's lanes, and each group
-//    keeps its own online-softmax statistics (m, l) and output acc for all
-//    G query rows of the kv head in registers, so the G rows share every
-//    K / V load.  No thread waits on another inside the loop.
+//    at Dh 64, 16 lanes of one float4 each, or 8 lanes of 8 bf16 (16-byte
+//    loads; a Dh that is no multiple of the vector, or a misaligned tensor,
+//    takes scalar loads).  The row groups take the share's slots in turn,
+//    each group U slots at once (all their K and V loads in flight
+//    together); a dot product is a shuffle reduction over the group's
+//    lanes, and each group keeps its own online-softmax statistics (m, l)
+//    and output acc for the pass's query rows in registers, so those rows
+//    share every K / V load.  No thread waits on another inside the loop.
 //  - The block's row groups merge in group order through shared memory;
-//    after a cluster barrier, block r merges the r-th share of the G x Dh
+//    after a cluster barrier, block r merges the r-th share of the pass's
 //    outputs over all splits in split order, reading the other blocks'
 //    partial (m, l, acc) through distributed shared memory, divides by l
 //    and stores.  One launch, no workspace, no atomics: the same bits in
 //    every run.
-#include <cuda_runtime.h>
-#include <cooperative_groups.h>
-#include <math.h>
-#include <stdint.h>
-
-namespace cg = cooperative_groups;
+#include "decode_common.cuh"
 
 namespace {
 
-constexpr int THREADS = 128;
-constexpr int MAX_SPLITS = 8;   // the portable cluster size
+namespace cg = cooperative_groups;
+using decode::THREADS;
 
-// VW floats per load (4 or 1), NV loads per lane and row, GM the most query
-// rows per kv head the instance holds (1 or 8).  R lanes (a power of two,
-// at most 32) hold one row: lane li of a group holds elements
-// (vi * R + li) * VW + e for vi < NV, e < VW, those below Dh.
-template <int VW, int NV, int GM>
-__global__ void __launch_bounds__(THREADS)
-flash_decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const int* __restrict__ pos,
-                    float* __restrict__ out, int KV, int G, int S, int Dh,
-                    int R, float scale, float softcap, int window) {
+// T the element type, VW elements per load, NV loads per lane and row,
+// GMI the most query rows a pass holds (1 or decode::GM).
+// A pass of 8 rows takes up to 255 registers (one block an SM will do).
+// A single row is held to 128, four blocks an SM: with more registers a
+// thread, the 8-block clusters of a split grid no longer all fit on the
+// card at once, which measured markedly slower on the H100.
+template <typename T, int VW, int NV, int GMI>
+__global__ void __launch_bounds__(THREADS, GMI == 1 ? 4 : 1)
+flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const int* __restrict__ pos,
+                    T* __restrict__ out, int KV, int G, int S, int Dh, int R,
+                    float scale, float softcap, int window) {
   constexpr int E = VW * NV;               // elements of a row per lane
-  constexpr int U = E >= 8 ? 2 : 4;        // slots a group loads at once
+  // slots a group loads at once (one at E 8 with 8 rows or scalar loads:
+  // no spills)
+  constexpr int U = E >= 8 ? (GMI > 1 || VW == 1 ? 1 : 2) : 4;
   extern __shared__ float smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int nsplit = (int)cluster.num_blocks();
@@ -87,260 +90,104 @@ flash_decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int s1 = lo + min(n, (split + 1) * chunk);
 
   const size_t qoff = (size_t)bh * G * Dh;
-  const float* kb = k + (size_t)bh * S * Dh;
-  const float* vb = v + (size_t)bh * S * Dh;
-
-  float qr[GM][E], acc[GM][E], m[GM], l[GM];
-#pragma unroll
-  for (int g = 0; g < GM; ++g) {
-    m[g] = -INFINITY;
-    l[g] = 0.f;
-#pragma unroll
-    for (int vi = 0; vi < NV; ++vi)
-#pragma unroll
-      for (int e = 0; e < VW; ++e) {
-        const int d = (vi * R + li) * VW + e;
-        qr[g][vi * VW + e] = g < G && d < Dh ? q[qoff + g * Dh + d] : 0.f;
-        acc[g][vi * VW + e] = 0.f;
-      }
-  }
-
+  const T* kb = k + (size_t)bh * S * Dh;
+  const T* vb = v + (size_t)bh * S * Dh;
   // every thread runs the same number of steps (the shuffles need whole
   // warps); a slot past the share is loaded as zeros and masked
   const int steps = (s1 - s0 + NG * U - 1) / (NG * U);
-  for (int it = 0; it < steps; ++it) {
-    const int jb = s0 + it * NG * U + rg;
-    float kr[U][E], vr[U][E];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int j = jb + u * NG;
-      const bool ok = j < s1;
-#pragma unroll
-      for (int vi = 0; vi < NV; ++vi) {
-        const int d = (vi * R + li) * VW;
-        const bool in = ok && d < Dh;
-        if constexpr (VW == 4) {
-          float4 kk = make_float4(0.f, 0.f, 0.f, 0.f), vv = kk;
-          if (in) {
-            const size_t at = (size_t)j * Dh + d;
-            kk = __ldg(reinterpret_cast<const float4*>(kb + at));
-            vv = __ldg(reinterpret_cast<const float4*>(vb + at));
-          }
-          kr[u][vi * VW + 0] = kk.x; kr[u][vi * VW + 1] = kk.y;
-          kr[u][vi * VW + 2] = kk.z; kr[u][vi * VW + 3] = kk.w;
-          vr[u][vi * VW + 0] = vv.x; vr[u][vi * VW + 1] = vv.y;
-          vr[u][vi * VW + 2] = vv.z; vr[u][vi * VW + 3] = vv.w;
-        } else {
-          kr[u][vi] = in ? __ldg(kb + (size_t)j * Dh + d) : 0.f;
-          vr[u][vi] = in ? __ldg(vb + (size_t)j * Dh + d) : 0.f;
-        }
-      }
-    }
-#pragma unroll
-    for (int g = 0; g < GM; ++g) {
-      if (g >= G) break;
-      float sc[U];
-      float mx = m[g];
+
+  for (int g0 = 0; g0 < G; g0 += GMI) {
+    const int gn = min(GMI, G - g0);
+    float qr[GMI][E], acc[GMI][E], m[GMI], l[GMI];
+    decode::init_pass<T, VW, NV, GMI>(q + qoff + (size_t)g0 * Dh, gn, li, R,
+                                      Dh, qr, acc, m, l);
+    for (int it = 0; it < steps; ++it) {
+      const int jb = s0 + it * NG * U + rg;
+      float kr[U][E], vr[U][E];
+      bool ok[U];
 #pragma unroll
       for (int u = 0; u < U; ++u) {
-        float dot = 0.f;
-#pragma unroll
-        for (int e = 0; e < E; ++e) dot = fmaf(qr[g][e], kr[u][e], dot);
-        for (int off = R >> 1; off > 0; off >>= 1)
-          dot += __shfl_xor_sync(0xffffffffu, dot, off);
-        float s = dot * scale;
-        if (softcap > 0.f) s = tanhf(s / softcap) * softcap;
-        sc[u] = jb + u * NG < s1 ? s : -INFINITY;
-        mx = fmaxf(mx, sc[u]);
+        const int j = jb + u * NG;
+        ok[u] = j < s1;
+        const size_t at = (size_t)(ok[u] ? j : 0) * Dh;
+        decode::load_row<T, VW, NV>(kb + at, ok[u], li, R, Dh, kr[u]);
+        decode::load_row<T, VW, NV>(vb + at, ok[u], li, R, Dh, vr[u]);
       }
-      if (mx == -INFINITY) continue;       // no live slot for this group yet
-      const float c = expf(m[g] - mx);     // exp(-inf) = 0 on the first
-      float lsum = l[g] * c;
-#pragma unroll
-      for (int e = 0; e < E; ++e) acc[g][e] *= c;
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const float pu = expf(sc[u] - mx);  // dead: exp(-inf) = 0
-        lsum += pu;
-#pragma unroll
-        for (int e = 0; e < E; ++e)
-          acc[g][e] = fmaf(pu, vr[u][e], acc[g][e]);
-      }
-      l[g] = lsum;
-      m[g] = mx;
+      decode::online_update<GMI, U, E>(kr, vr, ok, qr, m, l, acc, gn, R,
+                                       scale, softcap);
     }
+    decode::merge_store<T, VW, NV, GMI>(smem, m, l, acc, gn, Dh, R,
+                                        out + qoff + (size_t)g0 * Dh,
+                                        cluster);
   }
-
-  // the row groups' partials, merged in group order
-  float* pm = smem;                        // NG x G
-  float* pl = pm + NG * G;                 // NG x G
-  float* pa = pl + NG * G;                 // NG x G x Dh
-  float* bm = pa + NG * G * Dh;            // G: the block's partial
-  float* bl = bm + G;                      // G
-  float* ba = bl + G;                      // G x Dh
-#pragma unroll
-  for (int g = 0; g < GM; ++g) {
-    if (g >= G) break;
-    if (li == 0) {
-      pm[rg * G + g] = m[g];
-      pl[rg * G + g] = l[g];
-    }
-#pragma unroll
-    for (int vi = 0; vi < NV; ++vi)
-#pragma unroll
-      for (int e = 0; e < VW; ++e) {
-        const int d = (vi * R + li) * VW + e;
-        if (d < Dh) pa[(rg * G + g) * Dh + d] = acc[g][vi * VW + e];
-      }
-  }
-  __syncthreads();
-  for (int i = tid; i < G * Dh; i += THREADS) {
-    const int g = i / Dh, d = i % Dh;
-    float M = -INFINITY;
-    for (int r = 0; r < NG; ++r) M = fmaxf(M, pm[r * G + g]);
-    float L = 0.f, A = 0.f;
-    if (M != -INFINITY) {
-      for (int r = 0; r < NG; ++r) {
-        const float mr = pm[r * G + g];
-        const float w = mr == -INFINITY ? 0.f : expf(mr - M);
-        L = fmaf(pl[r * G + g], w, L);
-        A = fmaf(pa[(r * G + g) * Dh + d], w, A);
-      }
-    }
-    ba[i] = A;
-    if (d == 0) {
-      bm[g] = M;
-      bl[g] = L;
-    }
-  }
-
-  // the splits' partials, merged in split order: block `split` owns one
-  // share of the G x Dh outputs
-  cluster.sync();
-  const float* rm[MAX_SPLITS];
-  const float* rl[MAX_SPLITS];
-  const float* ra[MAX_SPLITS];
-#pragma unroll
-  for (int r = 0; r < MAX_SPLITS; ++r) {
-    const int rr = r < nsplit ? r : 0;
-    rm[r] = cluster.map_shared_rank(bm, rr);
-    rl[r] = cluster.map_shared_rank(bl, rr);
-    ra[r] = cluster.map_shared_rank(ba, rr);
-  }
-  const int total = G * Dh;
-  const int share = (total + nsplit - 1) / nsplit;
-  const int e1 = min(total, (split + 1) * share);
-  for (int i = split * share + tid; i < e1; i += THREADS) {
-    const int g = i / Dh;
-    float ms[MAX_SPLITS], ls[MAX_SPLITS], as[MAX_SPLITS];
-#pragma unroll
-    for (int r = 0; r < MAX_SPLITS; ++r)
-      if (r < nsplit) {
-        ms[r] = rm[r][g];
-        ls[r] = rl[r][g];
-        as[r] = ra[r][i];
-      }
-    float M = -INFINITY;
-#pragma unroll
-    for (int r = 0; r < MAX_SPLITS; ++r)
-      if (r < nsplit) M = fmaxf(M, ms[r]);
-    float L = 0.f, A = 0.f;
-    if (M != -INFINITY) {
-#pragma unroll
-      for (int r = 0; r < MAX_SPLITS; ++r)
-        if (r < nsplit) {
-          const float w = ms[r] == -INFINITY ? 0.f : expf(ms[r] - M);
-          L = fmaf(ls[r], w, L);
-          A = fmaf(as[r], w, A);
-        }
-    }
-    out[qoff + i] = L > 0.f ? A / L : 0.f;
-  }
-  cluster.sync();                  // peers have read this block's partial
 }
 
-template <int VW, int NV, int GM>
-int launch(const float* q, const float* k, const float* v, const int* pos,
-           float* out, int B, int KV, int G, int S, int Dh, int R,
-           float scale, float softcap, int window, int nsplit,
-           cudaStream_t stream) {
-  // at most 41,280 bytes (Dh 256, G 8, 4 row groups): no opt-in needed
+template <typename T, int VW, int NV>
+int by_rows(const void* q, const void* k, const void* v, const int* pos,
+            void* out, int B, int KV, int G, int S, int Dh, int R,
+            float scale, float softcap, int window, int nsplit,
+            cudaStream_t s) {
   const int NG = THREADS / R;
-  const size_t smem = sizeof(float) * ((size_t)NG * G * (Dh + 2) +
-                                       (size_t)G * (Dh + 2));
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)(B * KV * nsplit), 1, 1);
-  cfg.blockDim = dim3(THREADS, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = nsplit;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t e = cudaLaunchKernelEx(
-      &cfg, flash_decode_kernel<VW, NV, GM>, q, k, v, pos, out, KV, G, S,
-      Dh, R, scale, softcap, window);
-  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+  const int blocks = B * KV * nsplit;
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  T* ot = static_cast<T*>(out);
+  if (G == 1)
+    return decode::launch_cluster(
+        flash_decode_kernel<T, VW, NV, 1>, blocks, nsplit,
+        sizeof(float) * decode::merge_floats(NG, 1, Dh), s, qt, kt, vt, pos,
+        ot, KV, G, S, Dh, R, scale, softcap, window);
+  return decode::launch_cluster(
+      flash_decode_kernel<T, VW, NV, decode::GM>, blocks, nsplit,
+      sizeof(float) * decode::merge_floats(NG, decode::GM, Dh), s, qt, kt, vt,
+      pos, ot, KV, G, S, Dh, R, scale, softcap, window);
 }
 
-template <int VW, int NV>
-int by_group(const float* q, const float* k, const float* v, const int* pos,
-             float* out, int B, int KV, int G, int S, int Dh, int R,
-             float scale, float softcap, int window, int nsplit,
-             cudaStream_t s) {
-  return G == 1 ? launch<VW, NV, 1>(q, k, v, pos, out, B, KV, G, S, Dh, R,
-                                    scale, softcap, window, nsplit, s)
-                : launch<VW, NV, 8>(q, k, v, pos, out, B, KV, G, S, Dh, R,
-                                    scale, softcap, window, nsplit, s);
-}
-
-int pow2_at_least(int x) {
-  int p = 1;
-  while (p < x) p <<= 1;
-  return p;
-}
-
-}  // namespace
-
-// See the header comment for the layout.  softcap <= 0 and window <= 0
-// mean "none"; nsplit (1..8) is the cluster size, G <= 8, Dh <= 256.
-// Launches on `stream`; returns the launch's cudaError_t.
-extern "C" int flash_decode_f32(const float* q, const float* k,
-                                const float* v, const int* pos, float* out,
-                                int B, int KV, int G, int S, int Dh,
-                                float scale, float softcap, int window,
-                                int nsplit, void* stream) {
-  if (B <= 0 || KV <= 0 || G <= 0 || G > 8 || S <= 0 || Dh <= 0 ||
-      Dh > 256 || nsplit < 1 || nsplit > MAX_SPLITS ||
-      (long long)B * KV * nsplit > 0x7fffffffLL)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
+template <typename T>
+int by_layout(const void* q, const void* k, const void* v, const int* pos,
+              void* out, int B, int KV, int G, int S, int Dh, float scale,
+              float softcap, int window, int nsplit, cudaStream_t s) {
+  constexpr int VEC = 16 / (int)sizeof(T);
   const uintptr_t any = reinterpret_cast<uintptr_t>(q) |
                         reinterpret_cast<uintptr_t>(k) |
                         reinterpret_cast<uintptr_t>(v) |
                         reinterpret_cast<uintptr_t>(out);
-  if (Dh % 4 == 0 && (any & 15) == 0) {
-    const int R = pow2_at_least(Dh / 4) < 32 ? pow2_at_least(Dh / 4) : 32;
-    if (Dh / 4 <= R)
-      return by_group<4, 1>(q, k, v, pos, out, B, KV, G, S, Dh, R, scale,
-                            softcap, window, nsplit, s);
-    return by_group<4, 2>(q, k, v, pos, out, B, KV, G, S, Dh, R, scale,
-                          softcap, window, nsplit, s);
+  const bool vec = Dh % VEC == 0 && (any & 15) == 0;
+  const decode::Layout lay = decode::layout(Dh, (int)sizeof(T), vec);
+#define FD_ARGS q, k, v, pos, out, B, KV, G, S, Dh, lay.r, scale, softcap, \
+                window, nsplit, s
+  if (vec) {
+    if (lay.nv == 1) return by_rows<T, VEC, 1>(FD_ARGS);
+    if constexpr (VEC == 4) return by_rows<T, VEC, 2>(FD_ARGS);
+    return (int)cudaErrorInvalidValue;
   }
-  const int R = pow2_at_least(Dh) < 32 ? pow2_at_least(Dh) : 32;
-  const int nv = (Dh + R - 1) / R;          // 1 .. 8
-  if (nv == 1)
-    return by_group<1, 1>(q, k, v, pos, out, B, KV, G, S, Dh, R, scale,
-                          softcap, window, nsplit, s);
-  if (nv == 2)
-    return by_group<1, 2>(q, k, v, pos, out, B, KV, G, S, Dh, R, scale,
-                          softcap, window, nsplit, s);
-  if (nv <= 4)
-    return by_group<1, 4>(q, k, v, pos, out, B, KV, G, S, Dh, R, scale,
-                          softcap, window, nsplit, s);
-  return by_group<1, 8>(q, k, v, pos, out, B, KV, G, S, Dh, R, scale,
-                        softcap, window, nsplit, s);
+  if (lay.nv == 1) return by_rows<T, 1, 1>(FD_ARGS);
+  if (lay.nv == 2) return by_rows<T, 1, 2>(FD_ARGS);
+  if (lay.nv <= 4) return by_rows<T, 1, 4>(FD_ARGS);
+  return by_rows<T, 1, 8>(FD_ARGS);
+#undef FD_ARGS
+}
+
+}  // namespace
+
+// See the header comment for the layout.  dtype 0: float32, 1: bf16 (q,
+// k, v and out alike).  softcap <= 0 and window <= 0 mean "none"; nsplit
+// (1..8) is the cluster size; Dh <= 256.  Launches on `stream`; returns the
+// launch's cudaError_t.
+extern "C" int flash_decode(const void* q, const void* k, const void* v,
+                            const int* pos, void* out, int dtype, int B,
+                            int KV, int G, int S, int Dh, float scale,
+                            float softcap, int window, int nsplit,
+                            void* stream) {
+  if (B <= 0 || KV <= 0 || G <= 0 || S <= 0 || Dh <= 0 || Dh > 256 ||
+      nsplit < 1 || nsplit > decode::MAX_SPLITS || dtype < 0 || dtype > 1 ||
+      (long long)B * KV * nsplit > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 1)
+    return by_layout<decode::bf16>(q, k, v, pos, out, B, KV, G, S, Dh, scale,
+                                   softcap, window, nsplit, s);
+  return by_layout<float>(q, k, v, pos, out, B, KV, G, S, Dh, scale, softcap,
+                          window, nsplit, s);
 }

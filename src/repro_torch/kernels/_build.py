@@ -2,10 +2,11 @@
 
 Each source under ``repro_torch/csrc/`` is compiled by ``nvcc`` into its
 own shared library with a plain C interface (no PyTorch headers, so a
-build takes seconds).  All sources build at once, one ``nvcc`` process
-each, started together.  A library's file name carries a hash of its
-source and flags, so an edited source rebuilds and an unchanged one is
-reused.  The libraries land in ``build/kernels/`` at the root of the
+build takes seconds); headers shared between sources (``csrc/*.cuh``) are
+included by the sources that need them.  All sources build at once, one
+``nvcc`` process each, started together.  A library's file name carries a
+hash of its source, the shared headers and the flags, so an edited source
+or header rebuilds and an unchanged one is reused.  The libraries land in ``build/kernels/`` at the root of the
 checkout.  Nothing here runs at import time: the CPU tests import every
 module, and there is no ``nvcc`` on a machine without the toolkit.
 """
@@ -50,7 +51,9 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / SOURCES[name]).read_bytes()
+    # the source, the shared headers (csrc/*.cuh) and the flags
+    src = (CSRC / SOURCES[name]).read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha256(src + " ".join(FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 

@@ -28,7 +28,7 @@ from typing import Optional
 
 import torch
 
-from .gathered_matmul import _check, _fn, _launch
+from .gathered_matmul import _check, _fn, _launch, _on_cpu
 
 __all__ = ["flash_attention", "flash_attention_plain", "live_mask",
            "MAX_HEAD_DIM"]
@@ -36,6 +36,8 @@ __all__ = ["flash_attention", "flash_attention_plain", "live_mask",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
+# the C entry's argument types (the stream last)
+_ARGS = (_P,) * 6 + (_I,) * 6 + (_D, _I, _I, _D, _P)
 MAX_HEAD_DIM = 128      # the kernel pads Dh to 16, 32, 64 or 128
 
 
@@ -92,14 +94,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Block online-softmax attention -> (B, H, Lq, Dh) float32.  CPU
     tensors take the plain version; CUDA tensors launch the kernel on the
     current stream, without synchronising."""
-    if q.device.type == "cpu":
+    if not q.is_cuda and _on_cpu(q, "flash_attention"):
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      softcap=softcap, kv_keep=kv_keep,
                                      q_pos=q_pos)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on CUDA or CPU tensors, "
-                         f"got {q.device}")
-    dev = q.device
+    dev = q.get_device()
     _check(q, "q", torch.float32, 4, dev)
     _check(k, "k", torch.float32, 4, dev)
     _check(v, "v", torch.float32, 4, dev)
@@ -129,8 +128,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if softcap is not None and softcap <= 0:
         raise ValueError(f"softcap must be positive, got {softcap}")
     out = torch.empty_like(q)
-    fn = _fn("flash_attention", "flash_attention_f32",
-             (_P,) * 6 + (_I,) * 6 + (_D, _I, _I, _D, _P))
+    fn = _fn("flash_attention", "flash_attention_f32", _ARGS)
     _launch(fn, dev, "flash_attention", q.data_ptr(), k.data_ptr(),
             v.data_ptr(), None if kv_keep is None else kv_keep.data_ptr(),
             None if q_pos is None else q_pos.data_ptr(), out.data_ptr(), B,

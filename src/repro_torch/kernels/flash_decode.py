@@ -22,11 +22,12 @@ only for CPU tensors; CUDA tensors launch the kernel or raise.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import List, Optional, Tuple
 
 import torch
 
-from .gathered_matmul import H100_SMS, _check, _fn, _launch
+from .gathered_matmul import H100_SMS, _check, _fn, _launch, _on_cpu
 
 __all__ = ["flash_decode", "flash_decode_plain", "decode_split_count",
            "decode_split_ranges"]
@@ -34,13 +35,18 @@ __all__ = ["flash_decode", "flash_decode_plain", "decode_split_count",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# the CUDA kernel's limits and split policy (csrc/flash_decode.cu)
-DECODE_MAX_G = 8                # query rows per kv head
+# the C entry's argument types (the stream last)
+_ARGS = (_P,) * 5 + (_I,) * 6 + (_F, _F, _I, _I, _P)
+# the element types the decode kernels take (the C entries' dtype codes);
+# they compute in float32 and store in q's type
+DECODE_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the CUDA kernel's limit and split policy (csrc/flash_decode.cu); any G
 DECODE_MAX_DH = 256             # head width
 DECODE_MAX_SPLITS = 8           # splits form one cluster (portable size)
 DECODE_MIN_SPLIT_SLOTS = 16     # slots a split gets at the least
 
 
+@functools.lru_cache(maxsize=1024)
 def decode_split_count(pairs: int, S: int,
                        window: Optional[int] = None) -> int:
     """Splits of the cache axis for ``pairs = B * KV`` (b, kv head) pairs
@@ -89,42 +95,42 @@ def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  pos: torch.Tensor, softcap: Optional[float] = None,
                  window: Optional[int] = None) -> torch.Tensor:
-    """One-token GQA decode over the cache -> (B, KV, G, Dh).  CPU tensors
-    take the plain version; CUDA tensors launch the kernel on the current
-    stream, without synchronising."""
-    if q.device.type == "cpu":
+    """One-token GQA decode over the cache -> (B, KV, G, Dh) in q's type
+    (float32 or bf16; q, k and v alike; float32 arithmetic inside).  CPU
+    tensors take the plain version; CUDA tensors launch the kernel on the
+    current stream, without synchronising."""
+    if not q.is_cuda and _on_cpu(q, "flash_decode"):
         return flash_decode_plain(q, k, v, pos, softcap=softcap,
                                   window=window)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_decode runs on CUDA or CPU tensors, got "
-                         f"{q.device}")
-    dev = q.device
-    _check(q, "q", torch.float32, 4, dev)
-    _check(k, "k", torch.float32, 4, dev)
-    _check(v, "v", torch.float32, 4, dev)
+    dev = q.get_device()
+    code = DECODE_DTYPES.get(q.dtype)
+    if code is None:
+        raise TypeError(f"q has dtype {q.dtype}; the kernel takes float32 "
+                        f"or bfloat16")
+    _check(q, "q", q.dtype, 4, dev)
+    _check(k, "k", q.dtype, 4, dev)
+    _check(v, "v", q.dtype, 4, dev)
     _check(pos, "pos", torch.int32, 1, dev)
     B, KV, G, Dh = q.shape
     S = k.shape[2]
-    if (k.shape != (B, KV, S, Dh) or v.shape != k.shape
-            or pos.shape != (B,)):
+    if (k.shape[0] != B or k.shape[1] != KV or k.shape[3] != Dh
+            or v.shape != k.shape or pos.shape[0] != B):
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}, pos "
                          f"{tuple(pos.shape)}")
-    if min(B, KV, G, S, Dh) == 0:
+    if B == 0 or KV == 0 or G == 0 or S == 0 or Dh == 0:
         raise ValueError("flash_decode needs non-empty q and caches")
     if window is not None and window <= 0:
         raise ValueError(f"window must be positive, got {window}")
     if softcap is not None and softcap <= 0:
         raise ValueError(f"softcap must be positive, got {softcap}")
-    if G > DECODE_MAX_G or Dh > DECODE_MAX_DH:
-        raise ValueError(f"flash_decode takes G <= {DECODE_MAX_G} query rows "
-                         f"per kv head and Dh <= {DECODE_MAX_DH}, got G {G}, "
-                         f"Dh {Dh}")
+    if Dh > DECODE_MAX_DH:
+        raise ValueError(f"flash_decode takes Dh <= {DECODE_MAX_DH}, got Dh "
+                         f"{Dh}")
     out = torch.empty_like(q)
-    fn = _fn("flash_decode", "flash_decode_f32",
-             (_P,) * 5 + (_I,) * 5 + (_F, _F, _I, _I, _P))
-    _launch(fn, dev, "flash_decode", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            pos.data_ptr(), out.data_ptr(), B, KV, G, S, Dh, Dh ** -0.5,
+    _launch(_fn("flash_decode", "flash_decode", _ARGS), dev, "flash_decode",
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
+            out.data_ptr(), code, B, KV, G, S, Dh, Dh ** -0.5,
             softcap or 0.0, window or 0,
             decode_split_count(B * KV, S, window))
     flash_decode.launches += 1

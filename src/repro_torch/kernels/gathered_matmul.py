@@ -32,6 +32,9 @@ __all__ = ["gathered_matmul", "gather_rows", "gathered_matmul_plain",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# the C entries' argument types (the stream last)
+_GMM_ARGS = (_P, _P, _P, _P) + (_I,) * 6 + (_P,)
+_GATHER_ARGS = (_P, _P, _P, _I, _I, _I, _P)
 
 # the CUDA kernel's fixed tiling (csrc/gathered_matmul.cu)
 GMM_BN = 64             # output columns per block
@@ -42,44 +45,61 @@ H100_SMS = 132
 
 
 def _check(t: torch.Tensor, what: str, dtype: torch.dtype, ndim: int,
-           device: torch.device) -> None:
+           device: int) -> None:
+    """Raise unless ``t`` is a contiguous ``ndim``-D ``dtype`` tensor on
+    CUDA device index ``device`` (one line when it is)."""
     if (t.dtype == dtype and t.dim() == ndim and t.is_contiguous()
-            and t.device == device):
+            and t.get_device() == device):
         return
-    if t.device != device:
-        raise ValueError(f"{what} is on {t.device}, expected {device}")
+    if t.get_device() != device:
+        raise ValueError(f"{what} is on {t.device}, expected cuda:{device}")
     if t.dtype != dtype:
         raise TypeError(f"{what} has dtype {t.dtype}; the kernel takes "
                         f"{dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{what} must be {ndim}-D, got shape "
                          f"{tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{what} must be contiguous")
+    raise ValueError(f"{what} must be contiguous")
 
 
-@functools.lru_cache(maxsize=None)
+_ENTRIES: dict = {}
+
+
 def _fn(name: str, entry: str, argtypes: tuple):
-    """The C entry ``entry`` of kernel library ``name`` (built first if
-    needed), its argument types set, returning a cudaError_t."""
-    f = getattr(_build.library(name), entry)
-    f.argtypes = list(argtypes)
-    f.restype = ctypes.c_int
+    """The C entry ``entry`` of kernel library ``name``, returning a
+    cudaError_t: built, loaded and given its argument types at its first
+    call, then one dict lookup."""
+    f = _ENTRIES.get(entry)
+    if f is None:
+        f = getattr(_build.library(name), entry)
+        f.argtypes = list(argtypes)
+        f.restype = ctypes.c_int
+        _ENTRIES[entry] = f
     return f
 
 
-def _launch(fn, dev: torch.device, kernel: str, *args) -> None:
-    """Call the C entry ``fn(*args, stream)`` on ``dev``'s current stream;
-    raise if the launch failed.  Switches the current device only when it
-    differs (a device guard and a ``Stream`` object cost microseconds,
-    which is what a call at the serving shapes takes on the card)."""
-    if dev.index != torch.cuda.current_device():
+def _launch(fn, dev: int, kernel: str, *args) -> None:
+    """Call the C entry ``fn(*args, stream)`` on CUDA device ``dev``'s
+    current stream; raise if the launch failed.  Reads the current device
+    and stream straight from ``torch._C`` and switches the device only when
+    it differs (a device guard, a ``Stream`` object or
+    ``torch.cuda.current_device()`` cost more than the kernel at the
+    serving shapes)."""
+    if dev != torch._C._cuda_getDevice():
         with torch.cuda.device(dev):
             return _launch(fn, dev, kernel, *args)
-    rc = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+    rc = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {kernel} failed to launch "
                            f"(cudaError_t {rc})")
+
+
+def _on_cpu(t: torch.Tensor, kernel: str) -> bool:
+    """For a tensor that is not on CUDA: True on the CPU (the wrapper takes
+    the plain version); raises for any other device."""
+    if t.device.type == "cpu":
+        return True
+    raise ValueError(f"{kernel} runs on CUDA or CPU tensors, got {t.device}")
 
 
 @functools.lru_cache(maxsize=1024)
@@ -139,27 +159,25 @@ def gathered_matmul(x: torch.Tensor, w: torch.Tensor, perm: torch.Tensor,
     allowed).  CPU tensors take the plain version; CUDA tensors launch
     the kernel on the current stream, without synchronising.
     """
-    if x.device.type == "cpu":
+    if not x.is_cuda and _on_cpu(x, "gathered_matmul"):
         return gathered_matmul_plain(x, w, perm, src_slot)
-    if x.device.type != "cuda":
-        raise ValueError(f"gathered_matmul runs on CUDA or CPU tensors, "
-                         f"got {x.device}")
-    dev = x.device
+    dev = x.get_device()
     _check(x, "x", torch.float32, 2, dev)
     _check(w, "w", torch.float32, 2, dev)
     _check(perm, "perm", torch.int32, 1, dev)
-    (L, D), (D2, F), C = x.shape, w.shape, perm.shape[0]
+    L, D = x.shape
+    D2, F = w.shape
+    C = perm.shape[0]
     if D != D2:
         raise ValueError(f"contraction mismatch: x {tuple(x.shape)}, "
                          f"w {tuple(w.shape)}")
     if L == 0 or C == 0 or F == 0:
         raise ValueError("gathered_matmul needs non-empty x, perm and w")
     bm, splits = gmm_tiling(C, F, D)
-    out = torch.empty((C, F), dtype=torch.float32, device=dev)
-    fn = _fn("gathered_matmul", "gathered_matmul_f32",
-             (_P, _P, _P, _P) + (_I,) * 6 + (_P,))
-    _launch(fn, dev, "gathered_matmul", x.data_ptr(), w.data_ptr(),
-            perm.data_ptr(), out.data_ptr(), L, D, F, C, bm, splits)
+    out = x.new_empty((C, F))
+    _launch(_fn("gathered_matmul", "gathered_matmul_f32", _GMM_ARGS), dev,
+            "gathered_matmul", x.data_ptr(), w.data_ptr(), perm.data_ptr(),
+            out.data_ptr(), L, D, F, C, bm, splits)
     gathered_matmul.launches += 1
     return out if src_slot is None else gather_rows(out, src_slot)
 
@@ -168,21 +186,19 @@ def gather_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``out[i] = src[idx[i]]``: src (C, F) float32, idx (M,) int32 ->
     (M, F).  CPU tensors take the plain version; CUDA tensors launch the
     kernel on the current stream, without synchronising."""
-    if src.device.type == "cpu":
+    if not src.is_cuda and _on_cpu(src, "gather_rows"):
         return gather_rows_plain(src, idx)
-    if src.device.type != "cuda":
-        raise ValueError(f"gather_rows runs on CUDA or CPU tensors, got "
-                         f"{src.device}")
-    dev = src.device
+    dev = src.get_device()
     _check(src, "src", torch.float32, 2, dev)
     _check(idx, "idx", torch.int32, 1, dev)
-    (C, F), M = src.shape, idx.shape[0]
+    C, F = src.shape
+    M = idx.shape[0]
     if C == 0 or F == 0 or M == 0:
         raise ValueError("gather_rows needs non-empty src and idx")
-    out = torch.empty((M, F), dtype=torch.float32, device=dev)
-    fn = _fn("gather_rows", "gather_rows_f32", (_P, _P, _P, _I, _I, _I, _P))
-    _launch(fn, dev, "gather_rows", src.data_ptr(), idx.data_ptr(),
-            out.data_ptr(), C, F, M)
+    out = src.new_empty((M, F))       # cheaper than torch.empty(device=)
+    _launch(_fn("gather_rows", "gather_rows_f32", _GATHER_ARGS), dev,
+            "gather_rows", src.data_ptr(), idx.data_ptr(), out.data_ptr(), C,
+            F, M)
     gather_rows.launches += 1
     return out
 

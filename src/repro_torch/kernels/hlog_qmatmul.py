@@ -32,12 +32,13 @@ import torch
 
 from repro_torch.core.quantizers import hlog_project
 
-from .gathered_matmul import H100_SMS, _check, _fn, _launch
+from .gathered_matmul import H100_SMS, _check, _fn, _launch, _on_cpu
 
 __all__ = ["hlog_qmatmul", "hlog_qmatmul_plain", "hlog_tiling"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_ARGS = (_P,) * 4 + (_I,) * 4 + (_P,)     # the C entry's argument types
 # the CUDA kernel's tiles (csrc/hlog_qmatmul.cu)
 HLOG_BM = 128                   # output rows per block: 2 warpgroups x 64
 HLOG_BNS = (192, 128, 64)       # output tile widths it is built for
@@ -71,12 +72,9 @@ def hlog_qmatmul(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     """``hlog(xq) @ hlog(wq)`` -> (M, N) float32.  CPU tensors take the
     plain version; CUDA tensors launch the kernel on the current stream,
     without synchronising."""
-    if xq.device.type == "cpu":
+    if not xq.is_cuda and _on_cpu(xq, "hlog_qmatmul"):
         return hlog_qmatmul_plain(xq, wq)
-    if xq.device.type != "cuda":
-        raise ValueError(f"hlog_qmatmul runs on CUDA or CPU tensors, got "
-                         f"{xq.device}")
-    dev = xq.device
+    dev = xq.get_device()
     _check(xq, "xq", torch.float32, 2, dev)
     _check(wq, "wq", torch.float32, 2, dev)
     M, K = xq.shape
@@ -92,7 +90,7 @@ def hlog_qmatmul(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     # the levels in bf16, x as (M, Kp) and w transposed as (N, Kp)
     ws = torch.empty((M + N) * (-(-K // 8) * 8), dtype=torch.bfloat16,
                      device=dev)
-    fn = _fn("hlog_qmatmul", "hlog_qmatmul_f32", (_P,) * 4 + (_I,) * 4 + (_P,))
+    fn = _fn("hlog_qmatmul", "hlog_qmatmul_f32", _ARGS)
     _launch(fn, dev, "hlog_qmatmul", xq.data_ptr(), wq.data_ptr(),
             ws.data_ptr(), out.data_ptr(), M, K, N, hlog_tiling(M, N))
     hlog_qmatmul.launches += 1

@@ -21,13 +21,14 @@ import ctypes
 
 import torch
 
-from .gathered_matmul import _check, _fn, _launch
+from .gathered_matmul import _check, _fn, _launch, _on_cpu
 
 __all__ = ["local_similarity_dist", "local_similarity_plain", "MAX_WINDOW"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_ARGS = (_P, _P, _LL, _I, _I, _P)      # the C entry's argument types
 MAX_WINDOW = 16            # the kernel keeps w(w-1)/2 pair sums in registers
 _SLAB_BYTES = 64 << 20     # the plain version's pairwise intermediate per slab
 
@@ -61,22 +62,18 @@ def local_similarity_dist(spa: torch.Tensor, w: int = 8) -> torch.Tensor:
     """spa (B, H, L, Lk) float32 -> (B, H, L // w, w, w) L1 distances.
     CPU tensors take the plain version; CUDA tensors launch the kernel on
     the current stream, without synchronising."""
-    if spa.device.type == "cpu":
+    if not spa.is_cuda and _on_cpu(spa, "local_similarity_dist"):
         return local_similarity_plain(spa, w)
-    if spa.device.type != "cuda":
-        raise ValueError(f"local_similarity_dist runs on CUDA or CPU "
-                         f"tensors, got {spa.device}")
+    dev = spa.get_device()
     B, H, nw, Lk = _windows(spa, w)
-    _check(spa, "spa", torch.float32, 4, spa.device)
+    _check(spa, "spa", torch.float32, 4, dev)
     if not 1 <= w <= MAX_WINDOW or B * H * nw == 0 or Lk == 0:
         raise ValueError(f"local_similarity_dist needs 1 <= w <= "
                          f"{MAX_WINDOW} and a non-empty spa, got w {w}, spa "
                          f"{tuple(spa.shape)}")
-    out = torch.empty((B, H, nw, w, w), dtype=torch.float32,
-                      device=spa.device)
-    fn = _fn("local_similarity", "local_similarity_dist_f32",
-             (_P, _P, _LL, _I, _I, _P))
-    _launch(fn, spa.device, "local_similarity_dist", spa.data_ptr(),
+    out = torch.empty((B, H, nw, w, w), dtype=torch.float32, device=dev)
+    fn = _fn("local_similarity", "local_similarity_dist_f32", _ARGS)
+    _launch(fn, dev, "local_similarity_dist", spa.data_ptr(),
             out.data_ptr(), B * H * nw, w, Lk)
     local_similarity_dist.launches += 1
     return out

@@ -198,11 +198,15 @@ def _flash(attn: Callable, cfg, q, k, v, window, plan, q_capacity):
     kernel or its plain version)."""
     B, KV, G, L, Dh = q.shape
     H = KV * G
-    qf = q.reshape(B, H, L, Dh)
-    k, v = k.contiguous(), v.contiguous()
+    # the kernel computes in float32 (float64 inside): a bf16 model casts
+    # on the way in and back out, as the Pallas kernel casts on load and
+    # stores in q's dtype
+    qf = q.reshape(B, H, L, Dh).float()
+    k, v = k.float().contiguous(), v.float().contiguous()
     kw = dict(causal=cfg.causal, window=window, softcap=cfg.attn_softcap)
     if plan is None:
-        return attn(qf.contiguous(), k, v, **kw).reshape(B, KV, G, L, Dh)
+        return attn(qf.contiguous(), k, v, **kw).reshape(
+            B, KV, G, L, Dh).to(q.dtype)
     # SPLS plan -> block sparsity: kv_keep feeds the keep mask (dead K
     # tiles skipped); critical Q rows are packed to a capacity rounded up
     # to whole reference q tiles, carried with their original positions,
@@ -216,7 +220,8 @@ def _flash(attn: Callable, cfg, q, k, v, window, plan, q_capacity):
     q_perm, q_slot = pack_by_mask(crit, Cq)
     qp = gather_rows(qf, q_perm)
     op = attn(qp, k, v, kv_keep=keep, q_pos=q_perm.contiguous(), **kw)
-    return unpack_by_leader(op, q_slot, leader).reshape(B, KV, G, L, Dh)
+    return unpack_by_leader(op, q_slot, leader).reshape(
+        B, KV, G, L, Dh).to(q.dtype)
 
 
 def torch_flash(cfg, q, k, v, *, window=None, plan=None, q_capacity=None,

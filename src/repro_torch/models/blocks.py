@@ -23,8 +23,11 @@ from repro_torch.core.planner import (build_block_plan,
                                      progressive_plan_blocks)
 from repro_torch.core.sparse_exec import (compact_rows, spls_ffn,
                                           spls_ffn_packed)
-from repro_torch.sparse_compute import (is_packed, packed_mlp,
-                                        resolve_compute_backend)
+# the submodules, not the package: importing ``repro_torch.sparse_compute``
+# first runs its accounting module, which imports this package
+from repro_torch.sparse_compute.backend import (is_packed,
+                                                resolve_compute_backend)
+from repro_torch.sparse_compute.packed import packed_mlp
 
 from .attention import attention_decode, attention_forward
 from .common import rms_norm

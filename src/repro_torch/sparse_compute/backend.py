@@ -57,6 +57,19 @@ def _dense_gathered_matmul(x, w, perm, src_slot=None):
     return out if src_slot is None else _torch_gather_rows(out, src_slot)
 
 
+def _cuda_gathered_matmul(x, w, perm, src_slot=None):
+    # the kernel takes float32: a bf16 model casts on the way in, as the
+    # reference's wrapper does, and gets float32 back, as from the reference
+    return gathered_matmul(x.float(), w.float(), perm, src_slot)
+
+
+def _cuda_gather_rows(rows: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    # a copy: float32 through the kernel, back in the rows' own type, as
+    # for the other float32 kernels; for bf16 rows the two casts move more
+    # bytes than the copy (a copy by element size is ROADMAP work)
+    return gather_rows(rows.float(), idx).to(rows.dtype)
+
+
 _REGISTRY: Dict[str, _ComputeBackend] = {
     DENSE: _ComputeBackend(
         _dense_gathered_matmul, _torch_gather_rows,
@@ -65,7 +78,7 @@ _REGISTRY: Dict[str, _ComputeBackend] = {
         gathered_matmul_plain, gather_rows_plain,
         "the kernels' plain versions: gather -> reduced matmul -> gather"),
     "packed_cuda": _ComputeBackend(
-        gathered_matmul, gather_rows,
+        _cuda_gathered_matmul, _cuda_gather_rows,
         "CUDA gathered matmul (gather fused into tile loads) + row gather"),
 }
 

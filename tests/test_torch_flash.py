@@ -250,6 +250,12 @@ DECODE_SPLIT_CASES = {
                            q_scale=4.0),
     "dh_20_scalar": dict(pos=[390, 0, 45], S=512, Dh=20),
     "dh_20_gqa_g4": dict(pos=[47, 5], G=4, Dh=20, window=20),
+    # two passes of 8 query rows over each share
+    "gqa_g16": dict(pos=[390, 200], S=512, G=16, Dh=64, window=100,
+                    softcap=5.0),
+    "dh_20_gqa_g12": dict(pos=[47, 5], G=12, Dh=20),
+    # 8 scalar loads a lane: one slot at a time
+    "dh_250_scalar": dict(pos=[300, 0, 45], Dh=250),
 }
 
 
@@ -327,7 +333,7 @@ def _split_merge_emulation(q, k, v, pos, softcap=None, window=None):
     lanes = Dh // 4 if Dh % 4 == 0 else Dh
     R = min(32, _pow2_at_least(lanes))
     E = (4 if Dh % 4 == 0 else 1) * _pow2_at_least(-(-lanes // R))
-    NG, U = 128 // R, 2 if E >= 8 else 4
+    NG, U = 128 // R, (1 if G > 1 or Dh % 4 else 2) if E >= 8 else 4
     scale = np.float32(Dh ** -0.5)
     out = np.zeros_like(q)
 
@@ -495,6 +501,30 @@ def test_flash_decode_kernel_vs_plain(cuda_device, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", ["path", "gqa_g4", "window_one_split",
+                                  "gqa_g16", "dh_20_gqa_g12",
+                                  "dh_256_softcap"])
+def test_flash_decode_kernel_bf16(cuda_device, case):
+    """bf16 q and caches, cast to float32 on load, stored in bf16: within
+    one bf16 ulp of the plain output, or 1e-5 where that ulp is
+    smaller."""
+    c = {**DECODE_CASES, **DECODE_SPLIT_CASES}[case]
+    inp = [t(a).to(cuda_device)
+           for a in _decode_case_inputs(c, seed=len(case))]
+    inp[:3] = [a.bfloat16() for a in inp[:3]]
+    kw = dict(softcap=c.get("softcap"), window=c.get("window"))
+    got = K.flash_decode(*inp, **kw)
+    torch.cuda.synchronize()
+    ref = K.flash_decode_plain(*inp, **kw)
+    m, e = torch.frexp(ref.float())
+    ulp = torch.where(m == 0, torch.zeros_like(m),
+                      torch.ldexp(torch.ones_like(m), e - 8))
+    err = (got.float() - ref.float()).abs()
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got.float()).all()
+    assert bool((err <= torch.clamp(ulp, min=1e-5)).all())
+
+
+@pytest.mark.cuda
 def test_flash_wrappers_reject_bad_inputs(cuda_device):
     q = torch.zeros(1, 4, 8, 16, device=cuda_device)
     k = torch.zeros(1, 3, 8, 16, device=cuda_device)
@@ -509,9 +539,12 @@ def test_flash_wrappers_reject_bad_inputs(cuda_device):
         K.flash_decode(q, q, q, torch.zeros(1, dtype=torch.long,
                                             device=cuda_device))
     pos = torch.zeros(1, dtype=torch.int32, device=cuda_device)
-    with pytest.raises(ValueError, match="G <= 8"):
-        big = torch.zeros(1, 1, 9, 16, device=cuda_device)
-        K.flash_decode(big, k[:, :1], k[:, :1], pos)
+    with pytest.raises(TypeError):                 # float64 q and caches
+        K.flash_decode(q.double(), q.double(), q.double(), pos)
+    with pytest.raises(TypeError):                 # bf16 q, float32 caches
+        K.flash_decode(q.bfloat16(), q, q, pos)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        K.flash_decode(q, k, k, pos)
     with pytest.raises(ValueError, match="Dh <= 256"):
         wide = torch.zeros(1, 1, 1, 260, device=cuda_device)
         K.flash_decode(wide, wide, wide, pos)
