@@ -35,7 +35,18 @@ and nothing falls back to the CPU):
    ``paged_flash_decode``); (b) the published non-causal encoder through
    ``PagedServingEngine``: whole-prompt SPLS prefill (``flash_attention``)
    and paged decode (``paged_flash_decode``); (c) the same encoder through
-   the dense ``ServingEngine`` (``flash_attention``, ``flash_decode``).
+   the dense ``ServingEngine`` (``flash_attention``, ``flash_decode``);
+   then the causal form again on three more paths of
+   ``PagedServingEngine``: (f) without SPLS (the non-SPLS chunk step,
+   ``paged_flash_decode``), the baseline SPLS pruning is measured
+   against; (g) SPLS as in (a) on simulation-mode ``dense`` compute
+   (``paged_flash_decode``); (h) ``vote_horizon=1`` with packed compute at
+   the reference's CI telemetry knobs (k 0.05, s 0.9, prune vote 1.0,
+   capacity margin 1.0): ``gathered_matmul`` also for the packed K/V
+   projection (four launches a layer and chunk), ``gather_rows``,
+   ``paged_flash_decode``, and the ``BENCH_serving.json`` report written,
+   read back and validated with nonzero FLOPs saved in all four
+   components (its latency percentiles printed).
    Each path's launch counts are set to 0 just before its run and read
    just after; every kernel the path runs must have launched, and every
    request must finish.  The same requests then run through the plain
@@ -1073,7 +1084,7 @@ def serve_path(K, path: str, Engine, params, cfg, scfg, plain_cfg,
               "preemptions": st.get("preemptions"),
               "flops_saved_pct": st["flops_saved_pct"],
               "peak_device_bytes": peak, "launches": launches}
-    report.update(extra(eng, launches) if extra else {})
+    report.update(extra(eng, launches, wall) if extra else {})
     print(json.dumps(report, default=str))
 
     _, reqs_p, wall_p, launches_p, _ = _serve_run(K, Engine, plain_cfg,
@@ -1100,6 +1111,48 @@ def serve_path(K, path: str, Engine, params, cfg, scfg, plain_cfg,
     return launches
 
 
+def horizon_report(eng, launches, wall) -> dict:
+    """Path (h)'s checks on the drained engine: the packed K/V projection
+    launched ``gathered_matmul`` twice a layer and chunk beside Q and the
+    FFN; ``serving_report`` written to a temporary file, read back and
+    validated by the port's ``validate_report`` with nonzero FLOPs saved in
+    all four components.  Prints the latency percentiles and the shares."""
+    import tempfile
+
+    from repro_torch.observability import (serving_report, validate_report,
+                                           write_report)
+
+    cfg, st = eng.cfg, eng.stats
+    per_layer = 3 + int(cfg.spls.ffn_sparsity)     # Q, K, V (+ FFN up)
+    want = st["prefill_chunks"] * cfg.n_layers * per_layer
+    if launches["gathered_matmul"] != want:
+        _fail(f"horizon path: gathered_matmul launched "
+              f"{launches['gathered_matmul']} times, expected {want} (Q, K, "
+              f"V and the FFN of {cfg.n_layers} layers x "
+              f"{st['prefill_chunks']} chunks)")
+    report = serving_report(eng, wall_s=wall)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "BENCH_serving.json"
+        write_report(str(path), report)
+        report = json.loads(path.read_text())
+    validate_report(report, require_nonzero_flops=True)
+    lat = report["latency"]
+    sp = report["sparsity"]
+    print(json.dumps({
+        "serve_report": "causal_paged_horizon1_packed",
+        "schema_version": report["schema_version"],
+        **{f"{k}_p50": lat[k]["p50"] for k in ("ttft_ms", "tpot_ms",
+                                              "e2e_ms")},
+        **{f"{k}_p99": lat[k]["p99"] for k in ("ttft_ms", "tpot_ms",
+                                              "e2e_ms")},
+        **{k: v for k, v in sp.items() if k.startswith("flops_saved")},
+        "kept_ratio": sp.get("kept_ratio"),
+        "horizon_finalized_cols": sp.get("horizon_finalized_cols"),
+        "horizon_kv_capacity_drops": sp.get("horizon_kv_capacity_drops"),
+        "throughput": report["throughput"]}, default=str))
+    return {"kept_ratio_mean": sp["kept_ratio"]["mean"]}
+
+
 def serve(K) -> dict:
     """Each serving path at full width (BERT-Base: 12 x 768, vocab 30522,
     random weights from a seed): ``{path: its launch counts}``."""
@@ -1118,17 +1171,20 @@ def serve(K) -> dict:
         spls=dataclasses.replace(CONFIG.spls, causal=True))
     params = init_params(causal, seed=SEED)
 
-    def chunk_stats(eng, launches):
+    def chunk_stats(eng, launches, wall=None):
         st = eng.stats
         chunks = st["prefill_chunks"]
-        return {"prefill_chunks": chunks,
-                "capacity_q": st["capacity_q"],
-                "capacity_ffn": st["capacity_ffn"],
-                "gathered_matmul_per_chunk":
-                    launches["gathered_matmul"] / chunks,
-                "gather_rows_per_chunk": launches["gather_rows"] / chunks,
-                "paged_flash_decode_ticks":
-                    launches["paged_flash_decode"] / causal.n_layers}
+        out = {"prefill_chunks": chunks, "compute_backend":
+               st["compute_backend"]}
+        for cap in ("capacity_q", "capacity_ffn", "capacity_kv"):
+            if cap in st:
+                out[cap] = st[cap]
+        for name in ("gathered_matmul", "gather_rows"):
+            if launches[name]:
+                out[f"{name}_per_chunk"] = launches[name] / chunks
+        out["paged_flash_decode_ticks"] = \
+            launches["paged_flash_decode"] / causal.n_layers
+        return out
 
     paths["causal_paged_chunked"] = serve_path(
         K, "causal_paged_chunked: bert-base-esact causal, SPLS, "
@@ -1141,13 +1197,60 @@ def serve(K) -> dict:
                     attn_backend="torch_paged_decode", **base),
         ("gathered_matmul", "gather_rows", "paged_flash_decode"),
         chunk_stats)
+
+    # f. the same model without SPLS: the non-SPLS chunk step (plain
+    # torch attention over the pages, as in the reference), paged decode.
+    # The baseline SPLS pruning is measured against
+    nospls = dataclasses.replace(
+        causal, spls=dataclasses.replace(causal.spls, enabled=False))
+    paths["causal_paged_chunked_nospls"] = serve_path(
+        K, "causal_paged_chunked_nospls: bert-base-esact causal, no SPLS, "
+           "dense + cuda_paged_decode", PagedServingEngine, params, nospls,
+        ServeConfig(compute_backend="dense",
+                    attn_backend="cuda_paged_decode", **base),
+        nospls,
+        ServeConfig(compute_backend="dense",
+                    attn_backend="torch_paged_decode", **base),
+        ("paged_flash_decode",), chunk_stats)
+
+    # g. SPLS as in (a) on the reference's default simulation-mode compute
+    paths["causal_paged_chunked_spls_dense"] = serve_path(
+        K, "causal_paged_chunked_spls_dense: bert-base-esact causal, SPLS, "
+           "dense + cuda_paged_decode", PagedServingEngine, params, causal,
+        ServeConfig(compute_backend="dense",
+                    attn_backend="cuda_paged_decode", **base),
+        causal,
+        ServeConfig(compute_backend="dense",
+                    attn_backend="torch_paged_decode", **base),
+        ("paged_flash_decode",), chunk_stats)
+
+    # h. vote_horizon 1 with the packed K/V projection, at the knobs of the
+    # reference's CI telemetry job (k 0.05, s 0.9, prune vote 1.0, capacity
+    # margin 1.0), with the serving report
+    horizon = dataclasses.replace(causal, spls=dataclasses.replace(
+        causal.spls, k_ratio=0.05, s_threshold=0.9))
+    hbase = dict(base, vote_horizon=1, spls_prune_vote=1.0,
+                 capacity_margin=1.0)
+    paths["causal_paged_horizon1_packed"] = serve_path(
+        K, "causal_paged_horizon1_packed: bert-base-esact causal, SPLS, "
+           "vote_horizon 1, packed_cuda + cuda_paged_decode",
+        PagedServingEngine, params, horizon,
+        ServeConfig(compute_backend="packed_cuda",
+                    attn_backend="cuda_paged_decode", **hbase),
+        horizon,
+        ServeConfig(compute_backend="packed_torch",
+                    attn_backend="torch_paged_decode", **hbase),
+        ("gathered_matmul", "gather_rows", "paged_flash_decode"),
+        lambda eng, launches, wall: {
+            **chunk_stats(eng, launches),
+            **horizon_report(eng, launches, wall)})
     del params
 
     # 2. the published non-causal encoder: whole-prompt prefill.  The
     # ServeConfig names one site's backend, the model config the other's
     params = init_params(CONFIG, seed=SEED)
     on = lambda name: dataclasses.replace(CONFIG, attn_backend=name)
-    per_layer = lambda name: (lambda eng, launches: {
+    per_layer = lambda name: (lambda eng, launches, wall: {
         f"{name}_per_layer": launches[name] / CONFIG.n_layers})
     paths["noncausal_paged_full_prefill"] = serve_path(
         K, "noncausal_paged_full_prefill: bert-base-esact (non-causal), "

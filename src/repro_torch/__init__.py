@@ -8,7 +8,12 @@ its layout mirrors the reference (``configs``, ``core``, ``models``,
 ``csrc/`` holds the CUDA sources.  Entry points run on the card unless the
 caller passes ``device="cpu"``.
 
-This slice serves the reference's main path: SPLS paged serving of a
-causal attention-only model with packed compute
-(:class:`repro_torch.serving.PagedServingEngine`).
+The port serves what the reference's engines serve, greedily
+(temperature sampling is not ported): the paged engine in every mode --
+chunked SPLS prefill on packed or simulation-mode compute, without SPLS,
+without page pruning, with a finite vote horizon -- and whole-prompt
+prefill, and the dense fixed-slot engine (:mod:`repro_torch.serving`);
+``python -m repro_torch.serve_batch`` is the reference's serving example,
+and :mod:`repro_torch.observability` its telemetry and
+``BENCH_serving.json`` report.
 """

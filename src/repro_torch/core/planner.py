@@ -21,10 +21,14 @@ predictor cache -- and emits plans through it:
 * **progressive full sequence** -- :meth:`PlanContext.iter_blocks` /
   :meth:`PlanContext.plan_progressive` (window-aligned row blocks,
   per-token quantization): what a whole-prompt prefill builds, and
-  exactly what the streaming step reproduces chunk by chunk.
+  exactly what the streaming step reproduces chunk by chunk;
+* **horizon-finalized column votes** -- :func:`own_column_keep` and
+  :func:`pack_within_capacity` decide on the device which of a chunk's own
+  columns get a K/V projection (``vote_horizon == 1``), and
+  :func:`horizon_update_live` mirrors that decision on the host and
+  finalizes columns whose probation expired (any finite horizon).
 
-Only the structured head layout is ported.  The horizon-finalized vote
-(``vote_horizon``) waits for later work (ROADMAP.md, Queue A).
+Only the structured head layout is ported.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Iterator, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -46,7 +51,8 @@ from .topk import kv_keep_from_mask, sparsify_pam, topk_count
 
 __all__ = ["PlanContext", "build_block_plan", "build_block_plan_chunked",
            "build_block_plan_progressive", "progressive_plan_blocks",
-           "votes_from_kv_any"]
+           "votes_from_kv_any", "own_column_keep", "pack_within_capacity",
+           "horizon_update_live"]
 
 
 def _progressive_row_block(L: int, w: int) -> int:
@@ -275,6 +281,123 @@ class PlanContext:
                             q_critical=sim.is_critical, q_leader=sim.leader,
                             kv_keep=kv_keep, ffn_critical=ffn_crit,
                             ffn_leader=ffn_leader)
+
+
+# ---------------------------------------------------------------------------
+# horizon-finalized column votes
+# ---------------------------------------------------------------------------
+
+def own_column_keep(kv_any: torch.Tensor, *, start: int, chunk: int,
+                    valid: int, last_keep: int, vote_need: int = 1
+                    ) -> torch.Tensor:
+    """Keep decision for the *current* chunk's own columns (on the device).
+
+    kv_any: (B, KV, G, S) this chunk's plan-block column votes; start /
+    valid: the chunk's slot window; last_keep: the prompt's final position
+    (always kept: it anchors the decode continuation, as in
+    ``keep_from_votes``).  Returns (chunk,) bool: a column survives iff at
+    least ``vote_need`` heads' rows selected it -- the end-of-prefill
+    vote's bar (``ceil(spls_prune_vote * H)``) on the chunk's own plan
+    block.  This is the ``vote_horizon == 1`` finalization; it lands
+    before formal K/V generation, so the K/V projection can skip the
+    pruned columns.
+    """
+    S = kv_any.shape[-1]
+    idx = torch.arange(chunk, device=kv_any.device)
+    own = kv_any[..., start:min(start + chunk, S)]
+    hv = own.reshape(-1, own.shape[-1]).to(torch.int32).sum(0)
+    # a chunk reaching past the table's last slot reads no votes there
+    hv = torch.nn.functional.pad(hv, (0, chunk - hv.shape[0]))
+    keep = (hv >= vote_need) & (idx < valid)
+    return keep | (start + idx == last_keep)
+
+
+def pack_within_capacity(keep: torch.Tensor, capacity: int,
+                         anchor: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """(C,) keep mask -> the subset that fits the static capacity in the
+    stable pack order (:func:`~repro_torch.core.sparse_exec.pack_by_mask`:
+    the n-th kept row takes slot n-1).  Overflow columns leave the keep set
+    (never materialized, never attendable); the capacity controller sees
+    the overflow and escalates its bucket.
+
+    ``anchor`` (C,) marks the forced decode anchor (the prompt's final
+    position): present and kept, it is **reserved a slot** wherever it
+    sits -- it is the final chunk's highest index, so plain pack order
+    would drop it first, and decode without the last prompt token's K/V is
+    a failure where any other overflow only degrades.  The other columns
+    are then capped to ``capacity - 1``.
+    """
+    if anchor is None:
+        return keep & (torch.cumsum(keep.to(torch.int32), -1) - 1 < capacity)
+    anchor = anchor & keep
+    present = anchor.any().to(torch.int32)
+    others = keep & ~anchor
+    capped = others & (torch.cumsum(others.to(torch.int32), -1) - 1
+                       < capacity - present)
+    return capped | anchor
+
+
+def horizon_update_live(live: np.ndarray, head_votes: np.ndarray, *,
+                        start: int, valid: int, chunk: int, horizon: int,
+                        last_keep: int, vote_need: int = 1,
+                        kv_capacity: Optional[int] = None,
+                        metrics=None) -> np.ndarray:
+    """Host-side liveness update after one streamed chunk's votes landed.
+
+    live: (S,) current live mask; head_votes: (S,) accumulated cross-head
+    keep-vote *counts* (layer 0, summed over heads).  A column votable for
+    ``horizon`` consecutive chunks (its arrival chunk included) while
+    still below ``vote_need`` heads is finalized as pruned; a column that
+    reached the bar is never finalized (votes only grow).  With
+    ``kv_capacity`` (the ``horizon == 1`` packed-K/V path) the current
+    chunk's own columns are also capped to the packed projection capacity
+    in pack order -- exactly what :func:`own_column_keep` +
+    :func:`pack_within_capacity` wrote on the device, so the host's
+    bookkeeping and the device's pages agree.  ``last_keep`` (the prompt's
+    final position) is never finalized.
+
+    ``metrics`` (optional, a
+    :class:`~repro_torch.observability.metrics.MetricsRegistry`): only this
+    function knows whether a column died to the horizon or to the
+    kv-capacity pack, so it owns the ``spls/horizon_finalized_cols`` and
+    ``spls/horizon_kv_capacity_drops`` counters.
+    """
+    live = np.asarray(live).copy()
+    head_votes = np.asarray(head_votes)
+    S = live.shape[0]
+    sl = np.arange(S)
+    kept_by_vote = head_votes >= vote_need
+    if kv_capacity is not None and horizon == 1:
+        own = slice(start, min(start + chunk, S))
+        sl_own = sl[own]
+        anchor = sl_own == last_keep
+        keep_own = (kept_by_vote[own] | anchor) & (sl_own - start < valid)
+        anchor = anchor & keep_own
+        others = keep_own & ~anchor
+        written = (others & (np.cumsum(others) - 1
+                             < kv_capacity - int(anchor.any()))) | anchor
+        if metrics is not None:
+            newly_dead = live[own] & ~written
+            n_vote = int((newly_dead & ~keep_own).sum())
+            n_pack = int((newly_dead & keep_own).sum())
+            if n_vote:
+                metrics.counter("spls/horizon_finalized_cols").inc(n_vote)
+            if n_pack:
+                metrics.counter(
+                    "spls/horizon_kv_capacity_drops").inc(n_pack)
+        live[own] &= written
+        return live
+    cur = start // chunk
+    elapsed = cur - sl // chunk + 1
+    dead = (live & ~kept_by_vote & (sl < start + valid)
+            & (elapsed >= horizon) & (sl != last_keep))
+    if metrics is not None:
+        n_dead = int(dead.sum())
+        if n_dead:
+            metrics.counter("spls/horizon_finalized_cols").inc(n_dead)
+    live[dead] = False
+    return live
 
 
 def build_block_plan(cfg, p: dict, xn: torch.Tensor

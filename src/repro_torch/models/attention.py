@@ -97,10 +97,24 @@ def project_qkv(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
 
 
 def project_kv(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
-               mode: str = "structured"):
+               mode: str = "structured", perm: Optional[torch.Tensor] = None,
+               compute_backend: str = "dense"):
     """K/V-only projection: row-for-row the k/v half of
-    :func:`project_qkv` (the packed serving prefill projects Q itself)."""
+    :func:`project_qkv` (the packed serving prefill projects Q itself).
+
+    With ``perm`` (a packed column subset from the horizon-finalized prune
+    vote, :mod:`repro_torch.core.planner`) the projection runs through
+    :func:`repro_torch.sparse_compute.packed.packed_project_kv` on
+    ``compute_backend``: only the ``C = len(perm)`` surviving columns are
+    computed, ``(1, KV, C, Dh)`` out."""
     _check_mode(mode)
+    if perm is not None:
+        from repro_torch.sparse_compute.packed import packed_project_kv
+        if x.shape[0] != 1:
+            raise ValueError("the packed K/V projection is per sequence "
+                             f"(batch 1), got batch {x.shape[0]}")
+        return packed_project_kv(cfg, p, x, positions.reshape(-1), perm,
+                                 compute_backend)
     return _kv_rows(cfg, p, x, positions)
 
 

@@ -10,16 +10,20 @@ backends).
 :class:`~repro_torch.serving.pager.PagePool`; requests hold block tables
 instead of cache rows, admission is keyed on free pages, and a dry pool
 preempts the youngest sequence by page eviction.  A causal model prefills
-in chunks *between* decode ticks (no head-of-line blocking): with SPLS,
-each chunk carries its slice of the progressive sparsity plan, Q and the
-FFN run only on critical rows (packed compute), and the end-of-prefill
-prune vote compacts kept KV columns so the paper's sparsity buys pool
-capacity.  A non-causal model (the paper's BERT-Base encoder) cannot be
-chunked: it prefills each prompt whole through ``prefill`` and the flash
-backends, and the layer-0 prune vote decides which columns reach the pool.
+in chunks *between* decode ticks (no head-of-line blocking).  With SPLS,
+each chunk carries its slice of the progressive sparsity plan and runs in
+simulation mode (``compute_backend="dense"``) or with packed compute (Q
+and the FFN only on critical rows); the end-of-prefill prune vote compacts
+kept KV columns so the paper's sparsity buys pool capacity, and a finite
+``vote_horizon`` finalizes the vote early (at 1, with packed compute, the
+K/V projection skips the pruned columns too).  Under dense compute a
+prompt of at most one chunk prefills whole, as does every prompt of a
+non-causal model (the paper's BERT-Base encoder): ``prefill`` through the
+flash backends, then the layer-0 prune vote decides which columns reach
+the pool.
 
-Both engines sample greedily.  Configurations not ported yet raise
-``NotImplementedError`` naming the ROADMAP.md item that ports them.
+Both engines sample greedily.  Temperature sampling is not ported yet and
+raises ``NotImplementedError`` naming the ROADMAP.md item that ports it.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.planner import horizon_update_live
 from repro_torch.core.topk import topk_count
 from repro_torch.device import resolve_device
 from repro_torch.models import decode_step, init_cache, prefill
@@ -44,7 +49,8 @@ from repro_torch.sparse_compute import (CapacityController, chunk_flops,
 from .pager import (NULL_PAGE, PagePool, init_paged_cache, init_pos_pages,
                     init_pred_cache, keep_from_votes, spls_token_votes)
 from .paged_model import (compact_slots, paged_decode_step,
-                          paged_prefill_chunk_spls, scatter_prefill)
+                          paged_prefill_chunk, paged_prefill_chunk_spls,
+                          scatter_prefill)
 from .scheduler import Scheduler, SchedulerConfig, SeqState
 
 __all__ = ["Request", "ServeConfig", "ServingEngine", "PagedServingEngine"]
@@ -101,8 +107,7 @@ def _prompt_tokens(prompt) -> List[int]:
 def _unsupported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet (ROADMAP.md, {item}); the port serves "
-        f"greedy sampling, whole-prompt prefill, and chunked prefill with "
-        f"SPLS, packed compute and the end-of-prefill prune vote")
+        f"greedy sampling only")
 
 
 def _check_greedy(scfg) -> None:
@@ -294,46 +299,52 @@ class PagedServingEngine:
             raise ValueError("the paged engine is attention-only (SSM state "
                              "is O(1) per slot)")
         _check_greedy(scfg)
-        if scfg.vote_horizon is not None:
-            raise _unsupported("vote_horizon", "Queue A, deferred item 3")
         # chunked prefill needs causal cross-chunk attention; a non-causal
         # model prefills each prompt whole (and never uses the chunk
         # path's compute backend, so any backend is accepted)
         self._chunkable = cfg.causal
-        if self._chunkable and not cfg.spls.enabled:
-            raise _unsupported("chunked serving without SPLS (the non-SPLS "
-                               "chunk step)", "Queue A, deferred item 2")
-        if self._chunkable and not scfg.spls_page_prune:
-            raise _unsupported("SPLS serving without page pruning",
-                               "Queue A, deferred item 2")
+        if cfg.spls.enabled and self._chunkable \
+                and scfg.prefill_chunk % cfg.spls.window:
+            if scfg.auto_align_chunk:
+                aligned = -(-scfg.prefill_chunk // cfg.spls.window) \
+                    * cfg.spls.window
+                warnings.warn(
+                    f"prefill_chunk ({scfg.prefill_chunk}) is not a "
+                    f"multiple of the SPLS similarity window "
+                    f"({cfg.spls.window}); auto_align_chunk rounded it "
+                    f"up to {aligned}", RuntimeWarning, stacklevel=2)
+                scfg = dataclasses.replace(scfg, prefill_chunk=aligned)
+            else:
+                raise ValueError(
+                    f"prefill_chunk ({scfg.prefill_chunk}) must be a "
+                    f"multiple of the SPLS similarity window "
+                    f"({cfg.spls.window}): chunk boundaries must align "
+                    f"with similarity windows for chunked prefill to "
+                    f"reproduce the full-prefill plan (set "
+                    f"ServeConfig.auto_align_chunk=True to round up)")
         self._compute = resolve_compute_backend(
             scfg.compute_backend if scfg.compute_backend is not None
             else cfg.compute_backend, sparse=cfg.spls.enabled,
             device=self.device)
-        if self._chunkable:
-            if not is_packed(self._compute):
-                raise _unsupported(
-                    f"compute backend {self._compute!r} (simulation-mode "
-                    f"compute)", "Queue A, deferred item 2")
-            if scfg.prefill_chunk % cfg.spls.window:
-                if scfg.auto_align_chunk:
-                    aligned = -(-scfg.prefill_chunk // cfg.spls.window) \
-                        * cfg.spls.window
-                    warnings.warn(
-                        f"prefill_chunk ({scfg.prefill_chunk}) is not a "
-                        f"multiple of the SPLS similarity window "
-                        f"({cfg.spls.window}); auto_align_chunk rounded it "
-                        f"up to {aligned}", RuntimeWarning, stacklevel=2)
-                    scfg = dataclasses.replace(scfg, prefill_chunk=aligned)
-                else:
-                    raise ValueError(
-                        f"prefill_chunk ({scfg.prefill_chunk}) must be a "
-                        f"multiple of the SPLS similarity window "
-                        f"({cfg.spls.window}): chunk boundaries must align "
-                        f"with similarity windows for chunked prefill to "
-                        f"reproduce the full-prefill plan (set "
-                        f"ServeConfig.auto_align_chunk=True to round up)")
         self._prune = cfg.spls.enabled and scfg.spls_page_prune
+        # horizon-finalized column votes (core.planner): a finite horizon
+        # needs the streaming chunked path and page pruning (the horizon
+        # decision is a prune decision), with the end-of-prefill vote's
+        # cross-head bar
+        self._horizon = scfg.vote_horizon
+        self._vote_need = max(1, math.ceil(scfg.spls_prune_vote
+                                           * cfg.n_heads))
+        if self._horizon is not None:
+            if self._horizon < 1:
+                raise ValueError(
+                    f"vote_horizon must be >= 1 chunks (or None for the "
+                    f"end-of-prefill vote), got {self._horizon}")
+            if not (self._prune and self._chunkable):
+                raise ValueError(
+                    "vote_horizon requires SPLS (cfg.spls.enabled), page "
+                    "pruning (ServeConfig.spls_page_prune) and a causal "
+                    "model (chunked prefill): the horizon finalizes the "
+                    "streaming prune vote early")
         self._attn_backend = _site_cfg(cfg, scfg,
                                        "paged_decode").attn_backend
         self._cfg_fwd = _site_cfg(cfg, scfg, "forward")
@@ -348,14 +359,16 @@ class PagedServingEngine:
                    else scfg.n_slots * self.pages_per_seq + 1)
         self.pool = PagePool(n_pages, ps)
         cs = scfg.prefill_chunk
-        self._cap_q = self._cap_f = None
+        self._cap_q = self._cap_f = self._cap_kv = None
         if is_packed(self._compute):
-            self._cap_q = CapacityController(
+            cap = lambda: CapacityController(
                 cs, buckets=scfg.capacity_buckets,
                 margin=scfg.capacity_margin)
-            self._cap_f = CapacityController(
-                cs, buckets=scfg.capacity_buckets,
-                margin=scfg.capacity_margin)
+            self._cap_q, self._cap_f = cap(), cap()
+            # the K/V projection capacity: only vote_horizon == 1 decides
+            # before K/V generation
+            if self._horizon == 1:
+                self._cap_kv = cap()
         self.telemetry = Telemetry(enabled=scfg.telemetry)
         self.sched = Scheduler(
             SchedulerConfig(n_slots=scfg.n_slots,
@@ -365,8 +378,9 @@ class PagedServingEngine:
             self.pool, scfg.max_len, chunkable=self._chunkable,
             prune_aware=self._prune,
             # packed compute routes every prompt of a causal model through
-            # the chunk path (the scheduler ignores it when not chunkable)
-            chunk_all=True, telemetry=self.telemetry)
+            # the chunk path, so short prompts get token compaction too;
+            # under dense compute a prompt of one chunk prefills whole
+            chunk_all=is_packed(self._compute), telemetry=self.telemetry)
 
         self.cache = init_paged_cache(cfg, n_pages, ps, self.device)
         self.pos_pages = init_pos_pages(n_pages, ps, self.device)
@@ -391,6 +405,8 @@ class PagedServingEngine:
         if self._cap_q is not None:
             out["capacity_q"] = self._cap_q.snapshot()
             out["capacity_ffn"] = self._cap_f.snapshot()
+        if self._cap_kv is not None:
+            out["capacity_kv"] = self._cap_kv.snapshot()
         return out
 
     def submit(self, req: Request) -> None:
@@ -416,9 +432,10 @@ class PagedServingEngine:
             + sl % self.page_size
 
     def _full_prefill(self, st: SeqState) -> None:
-        """Whole-prompt prefill (a non-causal model): ``prefill`` through
-        the forward backends, the layer-0 prune vote, and the kept columns
-        scattered into the sequence's pages."""
+        """Whole-prompt prefill (any prompt of a non-causal model; under
+        dense compute, a causal model's prompt of at most one chunk):
+        ``prefill`` through the forward backends, the layer-0 prune vote,
+        and the kept columns scattered into the sequence's pages."""
         tel = self.telemetry
         tel.span_begin("full_prefill", rid=st.req.rid,
                        args={"prompt_len": st.prompt_len})
@@ -465,45 +482,92 @@ class PagedServingEngine:
                        args={"start": start, "valid": valid})
         chunk = np.zeros((cs,), np.int32)
         chunk[:valid] = st.tokens[start:start + valid]
-        if self.pred_cache is None:
-            self.pred_cache = init_pred_cache(self.cfg, self._n_pages,
-                                              self.page_size, self.device)
-            tel.sparsity.note_pool_bytes(tree_bytes(self.cache),
-                                         tree_bytes(self.pred_cache))
-        k = topk_count(st.prompt_len, self.cfg.spls.k_ratio)
-        cq = self._cap_q.capacity()
-        cf = self._cap_f.capacity() if self.cfg.spls.ffn_sparsity else None
-        logits, kv_any, counts = paged_prefill_chunk_spls(
-            self.cfg, self.params, self.cache, self.pred_cache,
-            self.pos_pages, self._tensor(self._table_row(st)), start,
-            self._tensor(chunk)[None, :], valid, k, q_capacity=cq,
-            ffn_capacity=cf, compute_backend=self._compute)
-        # cross-chunk vote accumulator: a head's "some row kept this
-        # column" bit only ever turns on, so OR is exact
-        votes = kv_any.reshape(self.cfg.n_heads, -1).cpu().numpy()
-        st.head_votes = (votes if st.head_votes is None
-                         else st.head_votes | votes)
-        # the host readback of the critical counts syncs on the chunk step
-        n_q, n_f, _ = (int(v) for v in counts.amax(dim=0).tolist())
-        self._cap_q.observe(n_q)
-        if n_q > cq:
-            self._cap_q.note_overflow()
-        tel.sparsity.note_capacity("q", cq, n_q, n_q > cq)
-        if self.cfg.spls.ffn_sparsity:
-            self._cap_f.observe(n_f)
-            if n_f > cf:
-                self._cap_f.note_overflow()
-            tel.sparsity.note_capacity("ffn", cf, n_f, n_f > cf)
-        self.sched.note_flops(chunk_flops(self.cfg, cs, start + valid,
-                                          q_rows=cq, ffn_rows=cf))
+        table = self._tensor(self._table_row(st))
+        toks = self._tensor(chunk)[None, :]
+        if self.cfg.spls.enabled:
+            logits = self._spls_chunk(st, start, valid, table, toks)
+        else:
+            logits = paged_prefill_chunk(self.cfg, self.params, self.cache,
+                                         self.pos_pages, table, start, toks,
+                                         valid)
+            self.sched.note_flops(chunk_flops(self.cfg, cs, start + valid))
         st.prefilled += valid
         st.kv_len += valid
         st.cur_pos += valid
         self.sched.stats["prefill_chunks"] += 1
         tel.span_end("prefill_chunk", rid=st.req.rid)
         if st.phase == "decode":
-            self._finish_chunk_prune(st)
+            if self._prune:
+                self._finish_chunk_prune(st)
             self._emit_first(st, logits[0, 0])
+
+    def _spls_chunk(self, st: SeqState, start: int, valid: int,
+                    table: torch.Tensor, toks: torch.Tensor) -> torch.Tensor:
+        """One SPLS chunk step: the plan block, the chunk's compute, the
+        vote accumulator, the horizon's liveness and the capacity
+        controllers' observations.  Returns the chunk's logits."""
+        tel = self.telemetry
+        cs = self.sched.cfg.prefill_chunk
+        if self.pred_cache is None:
+            self.pred_cache = init_pred_cache(self.cfg, self._n_pages,
+                                              self.page_size, self.device)
+            tel.sparsity.note_pool_bytes(tree_bytes(self.cache),
+                                         tree_bytes(self.pred_cache))
+        k = topk_count(st.prompt_len, self.cfg.spls.k_ratio)
+        packed = self._cap_q is not None
+        cq = self._cap_q.capacity() if packed else None
+        cf = (self._cap_f.capacity()
+              if packed and self.cfg.spls.ffn_sparsity else None)
+        ckv = self._cap_kv.capacity() if self._cap_kv is not None else None
+        last_keep = st.prompt_len - 1
+        live = None
+        if self._horizon is not None:
+            if st.live is None:
+                st.live = np.ones((self.pages_per_seq * self.page_size,),
+                                  bool)
+            live = self._tensor(st.live)
+        logits, kv_any, counts = paged_prefill_chunk_spls(
+            self.cfg, self.params, self.cache, self.pred_cache,
+            self.pos_pages, table, start, toks, valid, k, q_capacity=cq,
+            ffn_capacity=cf, kv_capacity=ckv, compute_backend=self._compute,
+            live=live, last_keep=last_keep, kv_vote_need=self._vote_need)
+        if self._prune:
+            # cross-chunk vote accumulator: a head's "some row kept this
+            # column" bit only ever turns on, so OR is exact
+            votes = kv_any.reshape(self.cfg.n_heads, -1).cpu().numpy()
+            st.head_votes = (votes if st.head_votes is None
+                             else st.head_votes | votes)
+        if self._horizon is not None:
+            # finalize columns whose probation expired below the vote bar,
+            # and mirror the device's kv_capacity pack of this chunk's own
+            # columns (core.planner owns both)
+            st.live = horizon_update_live(
+                st.live, st.head_votes.sum(axis=0), start=start,
+                valid=valid, chunk=cs, horizon=self._horizon,
+                last_keep=last_keep, vote_need=self._vote_need,
+                kv_capacity=ckv, metrics=tel.metrics)
+        if packed:
+            # the host readback of the critical counts syncs on the chunk
+            # step; only packed compute reads them (dense has no capacity)
+            n_q, n_f, n_kv = (int(v) for v in counts.amax(dim=0).tolist())
+            self._cap_q.observe(n_q)
+            if n_q > cq:
+                self._cap_q.note_overflow()
+            tel.sparsity.note_capacity("q", cq, n_q, n_q > cq)
+            if self.cfg.spls.ffn_sparsity:
+                self._cap_f.observe(n_f)
+                if n_f > cf:
+                    self._cap_f.note_overflow()
+                tel.sparsity.note_capacity("ffn", cf, n_f, n_f > cf)
+            if ckv is not None:
+                self._cap_kv.observe(n_kv)
+                if n_kv > ckv:
+                    self._cap_kv.note_overflow()
+                tel.sparsity.note_capacity("kv", ckv, n_kv, n_kv > ckv)
+        self.sched.note_flops(chunk_flops(self.cfg, cs, start + valid,
+                                          q_rows=cq, ffn_rows=cf,
+                                          kv_rows=ckv))
+        return logits
 
     def _finish_chunk_prune(self, st: SeqState) -> None:
         """Threshold the accumulated head votes once every prompt row has
@@ -517,6 +581,11 @@ class PagedServingEngine:
         votes = st.head_votes.sum(axis=0).astype(np.int32)
         keep = keep_from_votes(votes[:Lp], self.cfg.n_heads,
                                self.scfg.spls_prune_vote)
+        if st.live is not None:
+            # horizon-finalized columns are gone even if they gathered
+            # votes later, and an own column the kv_capacity pack dropped
+            # was never projected (the decode anchor stays live)
+            keep &= st.live[:Lp]
         n_kept = int(keep.sum())
         keep_slots = np.zeros((S,), bool)
         keep_slots[:Lp] = keep

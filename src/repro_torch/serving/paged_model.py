@@ -4,12 +4,19 @@
   the new token's K/V into the slot the block table names (inactive rows
   write to the null page) and attends through the paged-decode backends
   (``torch_paged_decode`` / ``cuda_paged_decode``).
+* :func:`paged_prefill_chunk` -- chunked prefill without SPLS: one prompt
+  chunk is projected at its original positions, written into freshly
+  allocated slots, and attends over every slot written so far (cross-chunk
+  causal attention).
 * :func:`paged_prefill_chunk_spls` -- one SPLS prompt chunk (the paper's
   progressive generation scheme): the chunk's predicted K heads extend the
   paged predictor cache, the planner emits the chunk's plan block against
-  every column seen so far, and the chunk executes with packed compute --
-  Q and attention only on the cross-head union of critical rows, the FFN
-  only on FFN-critical rows, leaders broadcasting to their followers.
+  every column seen so far, and the chunk executes either in simulation
+  mode (``dense``: every row computed, similar rows read their leader's Q
+  and FFN output) or with packed compute -- Q and attention only on the
+  cross-head union of critical rows, the FFN only on FFN-critical rows,
+  leaders broadcasting to their followers, and under ``vote_horizon == 1``
+  K/V only for the columns the chunk's own vote keeps.
 * :func:`compact_slots` -- the end-of-prefill prune compaction.
 * :func:`scatter_prefill` -- a whole-prompt prefill's kept KV columns
   into pages.
@@ -18,7 +25,9 @@ Where the reference threads caches through pure functions and donates the
 old buffers, these functions update the page pool, the predictor cache and
 ``pos_pages`` **in place** (index assignment into views of the stacked
 tensors) and return only what is new.  The engine owns the host-side pool
-bookkeeping.
+bookkeeping.  The chunk steps' attention (a gather of the sequence's pages
+and dense masked scores) is plain PyTorch, as it is plain XLA in the
+reference.
 """
 
 from __future__ import annotations
@@ -27,9 +36,10 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.core.planner import PlanContext
-from repro_torch.core.sparse_exec import compact_rows, gather_rows, \
-    masked_softmax
+from repro_torch.core.planner import (PlanContext, own_column_keep,
+                                     pack_within_capacity)
+from repro_torch.core.sparse_exec import (compact_rows, gather_rows,
+                                          masked_softmax, pack_by_mask)
 from repro_torch.models.attention import output_proj, project_kv, \
     project_qkv
 from repro_torch.models.attn_backend import get_backend, \
@@ -43,8 +53,8 @@ from repro_torch.sparse_compute import is_packed, packed_mlp, \
 
 from .pager import POS_SENTINEL
 
-__all__ = ["paged_decode_step", "paged_prefill_chunk_spls", "compact_slots",
-           "scatter_prefill"]
+__all__ = ["paged_decode_step", "paged_prefill_chunk",
+           "paged_prefill_chunk_spls", "compact_slots", "scatter_prefill"]
 
 
 def _write_slots(pages: torch.Tensor, rows: torch.Tensor,
@@ -59,21 +69,25 @@ def _write_slots(pages: torch.Tensor, rows: torch.Tensor,
 
 
 def _residual_ffn(cfg, blk, bp, x: torch.Tensor, h: torch.Tensor,
-                  ffn_comp=None, compute_backend: str = "dense"
-                  ) -> torch.Tensor:
+                  ffn_leader: Optional[torch.Tensor] = None, ffn_comp=None,
+                  compute_backend: str = "dense") -> torch.Tensor:
     """Attention residual + optional post-norms + FFN residual.
-    ``ffn_comp`` (a :class:`~repro_torch.core.sparse_exec.Compaction`)
-    switches to the packed sparse FFN: only critical rows are computed,
-    leaders broadcast to followers."""
+    ``ffn_leader`` ((B, L) local row ids) is the simulation-mode sparse
+    FFN: similar rows copy their MFI leader's output.  ``ffn_comp`` (a
+    :class:`~repro_torch.core.sparse_exec.Compaction`) switches to the
+    packed sparse FFN: only critical rows are computed, leaders broadcast
+    to followers."""
     if cfg.use_post_norm:
         h = rms_norm(h, bp["post_ln1"], cfg.norm_eps)
     x = x + h
     if blk.has_ffn:
         xn2 = rms_norm(x, bp["ln2"], cfg.norm_eps)
-        if ffn_comp is not None:
+        if ffn_comp is not None and not blk.use_moe:
             h2 = packed_mlp(cfg, bp["ffn"], xn2, ffn_comp, compute_backend)
         else:
             h2 = ffn_forward(cfg, blk.use_moe, bp["ffn"], xn2)
+            if ffn_leader is not None:
+                h2 = gather_rows(h2, ffn_leader)
         if cfg.use_post_norm:
             h2 = rms_norm(h2, bp["post_ln2"], cfg.norm_eps)
         x = x + h2
@@ -128,7 +142,7 @@ def paged_decode_step(cfg, params, cache, pos_pages: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# SPLS chunked prefill (the paper's progressive generation scheme, Sec. IV-C)
+# chunked prefill
 # ---------------------------------------------------------------------------
 
 def _chunk_slots(table: torch.Tensor, pos_pages: torch.Tensor, start: int,
@@ -153,13 +167,82 @@ def _chunk_slots(table: torch.Tensor, pos_pages: torch.Tensor, start: int,
     return sl, flat
 
 
+def _check_chunk(cfg, CS: int, valid: int) -> None:
+    if not cfg.causal:
+        raise ValueError("chunked prefill needs causal attention")
+    if not 1 <= valid <= CS:
+        raise ValueError(f"valid ({valid}) must be in [1, {CS}]")
+
+
+def paged_prefill_chunk(cfg, params, cache, pos_pages: torch.Tensor,
+                        table: torch.Tensor, start: int,
+                        tokens: torch.Tensor, valid: int) -> torch.Tensor:
+    """One prompt chunk for a single sequence (B = 1), without SPLS.
+
+    tokens: (1, CS) the chunk padded to the static chunk size; start:
+    slots written so far (== the chunk's first original position: this
+    path never prunes); valid: real tokens in the chunk; table: (P,) the
+    sequence's block table, with pages for ``start + valid`` slots
+    allocated.  The chunk's queries attend over every slot written so far
+    plus the chunk, masked by original position (causal, the block's
+    ``window``) with ``attn_softcap``.  Updates ``cache`` and
+    ``pos_pages`` in place; returns the logits (1, 1, V) of the chunk's
+    last valid row (the LM head runs on that row only).
+    """
+    _, CS = tokens.shape
+    _check_chunk(cfg, CS, valid)
+    N, ps = pos_pages.shape
+    S = table.shape[0] * ps
+    KV, Dh = cfg.n_kv_heads, cfg.resolved_head_dim
+    dtype = dtype_of(cfg.compute_dtype)
+    dev = tokens.device
+    tl = table.long()
+
+    sl, flat = _chunk_slots(table, pos_pages, start, valid, CS)
+    positions = sl[None, :]
+    pg = pos_pages[tl].reshape(S)                    # slot -> original id
+    slot_idx = torch.arange(S, device=dev)
+    row_pos = positions[0][:, None]
+    m = (slot_idx[None, :] < start + valid) & (pg[None, :] <= row_pos)
+
+    x = embed_inputs(cfg, params, tokens)
+    for pi in range(cfg.n_periods):
+        for blk, bp, kc in zip(cfg.period, period_params(params, pi, dtype),
+                               cache):
+            k_pages, v_pages = kc.k_pages[pi], kc.v_pages[pi]
+            xn = rms_norm(x, bp["ln1"], cfg.norm_eps)
+            q, k_new, v_new = project_qkv(cfg, bp["attn"], xn, positions)
+            _write_slots(k_pages, k_new[0], flat)
+            _write_slots(v_pages, v_new[0], flat)
+            kg = k_pages[:, tl].reshape(1, KV, 1, S, Dh)
+            vg = v_pages[:, tl].reshape(1, KV, 1, S, Dh)
+            s = softcap(torch.matmul(q, kg.transpose(-1, -2)) * Dh ** -0.5,
+                        cfg.attn_softcap)
+            mb = m
+            if blk.window is not None:
+                mb = mb & (row_pos - pg[None, :] < blk.window)
+            s = torch.where(mb, s, torch.full_like(s, -1e30))
+            a = torch.softmax(s.float(), dim=-1).to(q.dtype)
+            h = output_proj(cfg, bp["attn"], torch.matmul(a, vg))
+            x = _residual_ffn(cfg, blk, bp, x, h)
+    return head_logits(cfg, params, x[:, valid - 1:valid])
+
+
+# ---------------------------------------------------------------------------
+# SPLS chunked prefill (the paper's progressive generation scheme, Sec. IV-C)
+# ---------------------------------------------------------------------------
+
 def paged_prefill_chunk_spls(cfg, params, cache, pred_cache,
                              pos_pages: torch.Tensor, table: torch.Tensor,
                              start: int, tokens: torch.Tensor, valid: int,
                              topk_k: int, q_capacity: Optional[int] = None,
                              ffn_capacity: Optional[int] = None,
-                             compute_backend: str = "packed_torch"):
-    """One SPLS prompt chunk for a single sequence (B = 1), packed compute.
+                             kv_capacity: Optional[int] = None,
+                             compute_backend: str = "dense",
+                             live: Optional[torch.Tensor] = None,
+                             last_keep: Optional[int] = None,
+                             kv_vote_need: int = 1):
+    """One SPLS prompt chunk for a single sequence (B = 1).
 
     tokens: (1, CS) the chunk padded to the static chunk size; start:
     slots written so far (== the chunk's first original position: columns
@@ -169,23 +252,36 @@ def paged_prefill_chunk_spls(cfg, params, cache, pred_cache,
 
     Every layer (1) extends its paged predictor cache with the chunk's
     predicted K heads as int8 codes + per-token scale, (2) emits the
-    chunk's plan block against every column seen so far, and (3) runs Q
-    and attention on the cross-head union of critical rows packed to
-    ``q_capacity`` and the FFN on FFN-critical rows packed to
-    ``ffn_capacity`` (overflow rows fall back to their window leader).
-    K/V are projected for every chunk row: columns must live until the
-    prune vote finalizes with the last chunk.  The chunk attention (gather
-    of the sequence's pages + dense masked scores) is plain PyTorch, as it
-    is plain XLA in the reference.
+    chunk's plan block against every column seen so far, and (3) runs the
+    chunk's attention and FFN over all written slots:
+
+    * ``compute_backend="dense"`` (simulation mode): Q, K and V for every
+      row; a similar row uses its leader's Q row and mask row, and its
+      MFI leader's FFN output;
+    * a packed backend: Q and attention on the cross-head union of
+      critical rows packed to ``q_capacity``, the FFN on FFN-critical rows
+      packed to ``ffn_capacity`` (overflow rows fall back to their window
+      leader).  At full capacities this is the dense path's arithmetic.
+
+    **Horizon-finalized votes** (``live`` / ``kv_capacity`` /
+    ``last_keep``, see :mod:`repro_torch.core.planner`): ``live`` (S,)
+    marks the columns a finite ``vote_horizon`` has not finalized as
+    pruned; the others are denied attention in every layer, while the
+    prediction and vote stay horizon-independent.  With ``kv_capacity``
+    (``vote_horizon == 1``, packed compute only), layer 0 of period 0
+    decides which of the chunk's own columns won ``kv_vote_need`` heads'
+    votes (plus the ``last_keep`` anchor), packs them to ``kv_capacity``,
+    and only those are projected and written; every layer shares that
+    decision, as a page slot is shared by every layer.  Without them every
+    chunk column is projected until the end-of-prefill vote.
 
     Updates ``cache``, ``pred_cache`` and ``pos_pages`` in place.  Returns
     ``(logits (1, 1, V) of the chunk's last valid row, kv_any (1, KV, G,
     S) layer 0's per-head column-keep bits, counts (n_periods, 3) int32)``
     with counts the per-period max of (union-critical rows, FFN-critical
-    rows, 0) -- the capacity controllers' observations.
+    rows, vote-surviving own columns under ``kv_capacity`` else 0) -- the
+    capacity controllers' observations.
     """
-    if not cfg.causal:
-        raise ValueError("chunked prefill needs causal attention")
     _, CS = tokens.shape
     w = cfg.spls.window
     if CS % w:
@@ -194,15 +290,18 @@ def paged_prefill_chunk_spls(cfg, params, cache, pred_cache,
             f"similarity window ({w}): chunk boundaries must align with "
             f"similarity windows for chunked prefill to reproduce the "
             f"full-prefill plan")
-    if not is_packed(compute_backend):
-        raise NotImplementedError(
-            f"compute backend {compute_backend!r}: the port's SPLS chunk "
-            f"step runs packed compute only (simulation-mode 'dense' "
-            f"compute: ROADMAP.md, Queue A)")
-    if not 1 <= valid <= CS:
-        raise ValueError(f"valid ({valid}) must be in [1, {CS}]")
+    _check_chunk(cfg, CS, valid)
+    packed = is_packed(compute_backend)
+    if kv_capacity is not None:
+        if not packed:
+            raise ValueError("kv_capacity rides on a packed compute backend, "
+                             f"got {compute_backend!r}")
+        if live is None or last_keep is None:
+            raise ValueError("kv_capacity needs the liveness mask and the "
+                             "decode anchor (live, last_keep)")
     Cq = min(q_capacity or CS, CS)
     Cf = min(ffn_capacity or CS, CS)
+    Ckv = min(kv_capacity, CS) if kv_capacity is not None else None
     N, ps = pos_pages.shape
     S = table.shape[0] * ps
     KV, Dh = cfg.n_kv_heads, cfg.resolved_head_dim
@@ -223,6 +322,8 @@ def paged_prefill_chunk_spls(cfg, params, cache, pred_cache,
 
     x = embed_inputs(cfg, params, tokens)
     kv_any = None
+    # the vote_horizon == 1 decision of layer 0 (period 0), shared by all
+    kv_written = live_all = n_kv = None
     counts = []
     for pi in range(cfg.n_periods):
         cnt = torch.zeros(3, dtype=torch.int64, device=dev)
@@ -232,7 +333,10 @@ def paged_prefill_chunk_spls(cfg, params, cache, pred_cache,
             k_pages, v_pages = kc.k_pages[pi], kc.v_pages[pi]
             codes_pg, scale_pg = pk.codes[pi], pk.scale[pi]
             xn = rms_norm(x, bp["ln1"], cfg.norm_eps)
-            # prediction: extend the predictor code pages, emit the plan
+            # prediction: extend the predictor code pages, emit the plan.
+            # The prediction and vote stay horizon-independent: finalized
+            # columns keep their top-k candidacy and are only denied
+            # materialization and attention below
             qh, k_codes, k_scale = ctx.encode_pred_qk(bp["attn"], xn)
             _write_slots(codes_pg, k_codes, flat)
             scale_pg.view(-1)[flat] = k_scale
@@ -246,37 +350,86 @@ def paged_prefill_chunk_spls(cfg, params, cache, pred_cache,
             lead_local = pb.q_leader - start
             crit_any = pb.q_critical.any(dim=2).any(dim=1)      # (1, CS)
             n_ffn = (pb.ffn_critical[0] & (ridx < valid)).sum()
+            if Ckv is not None and kv_written is None:
+                # which of this chunk's own columns get a K/V projection
+                ok = own_column_keep(pb.kv_any, start=start, chunk=CS,
+                                     valid=valid, last_keep=last_keep,
+                                     vote_need=kv_vote_need)
+                kv_written = pack_within_capacity(
+                    ok, Ckv, anchor=start + ridx == last_keep)
+                live_all = live.clone()
+                end = min(start + CS, S)
+                live_all[start:end] = kv_written[:end - start]
+                n_kv = ok.sum()
             cnt = torch.maximum(cnt, torch.stack(
-                [crit_any.sum(), n_ffn, torch.zeros_like(n_ffn)]))
-            # formal K/V at original positions, for every chunk row
-            k_new, v_new = project_kv(cfg, bp["attn"], xn, positions)
-            _write_slots(k_pages, k_new[0], flat)
-            _write_slots(v_pages, v_new[0], flat)
+                [crit_any.sum(), n_ffn,
+                 n_kv if n_kv is not None else torch.zeros_like(n_ffn)]))
+            # formal K/V at original positions: every chunk row, except
+            # under vote_horizon == 1, where only the kept columns
+            if not packed:
+                q, k_new, v_new = project_qkv(cfg, bp["attn"], xn, positions)
+                kv_flat = flat
+            elif Ckv is not None:
+                # pack order over the anchor-reserved written set: at most
+                # Ckv True rows, so every written column lands in the perm
+                # (filler slots scatter to the null page)
+                kv_perm, _ = pack_by_mask(kv_written, Ckv)
+                k_new, v_new = project_kv(
+                    cfg, bp["attn"], xn, positions, perm=kv_perm,
+                    compute_backend=compute_backend)
+                kp = kv_perm.long()
+                kv_flat = torch.where(kv_written[kp], flat[kp], 0)
+            else:
+                k_new, v_new = project_kv(cfg, bp["attn"], xn, positions)
+                kv_flat = flat
+            _write_slots(k_pages, k_new[0], kv_flat)
+            _write_slots(v_pages, v_new[0], kv_flat)
             kg = k_pages[:, tl].reshape(1, KV, 1, S, Dh)
             vg = v_pages[:, tl].reshape(1, KV, 1, S, Dh)
             mask = pb.mask
             if blk.window is not None:
                 mask = mask & (age < blk.window)
-            # packed SPLS attention: only the union rows' scores (every
-            # head's leaders are in the union); every row then reads its
-            # leader's packed slot, overflow rows their window leader's
-            qcomp = compact_rows(crit_any, Cq, leader=lead_local, window=w)
-            perm = qcomp.perm[0]
-            q_sel = packed_project_q(cfg, bp["attn"], xn, sl, perm,
-                                     compute_backend)
-            mask_sel = mask.index_select(-2, perm.long())
+            if live_all is not None:
+                # finalized earlier, or dropped by this chunk's K/V pack:
+                # never projected, so never attended
+                mask = mask & live_all
+            elif live is not None:
+                # a finite horizon without the K/V pack: earlier-finalized
+                # columns are pruned, this chunk's own always materialize
+                mask = mask & live
+            # the two modes differ only in which q / mask rows the shared
+            # score-softmax-AV block sees
+            if packed:
+                # only the union rows' scores (every head's leaders are in
+                # the union); every row then reads its leader's packed
+                # slot, overflow rows their window leader's
+                qcomp = compact_rows(crit_any, Cq, leader=lead_local,
+                                     window=w)
+                perm = qcomp.perm[0]
+                q_sel = packed_project_q(cfg, bp["attn"], xn, sl, perm,
+                                         compute_backend)
+                mask_sel = mask.index_select(-2, perm.long())
+            else:
+                # similar rows use their leader's Q row and mask row
+                # (leaders are window-local, hence chunk-local)
+                q_sel = gather_rows(q, lead_local)
+                mask_sel = gather_rows(mask, lead_local)
             s = torch.matmul(q_sel, kg.transpose(-1, -2)) * Dh ** -0.5
             s = softcap(s, cfg.attn_softcap)
             o = torch.matmul(masked_softmax(s, mask_sel), vg)
-            o = gather_rows(o, qcomp.src_slot)
+            if packed:
+                o = gather_rows(o, qcomp.src_slot)
             h = output_proj(cfg, bp["attn"], o)
             ffn_comp = None
-            if scfg.ffn_sparsity and not blk.use_moe:
+            if packed and scfg.ffn_sparsity and not blk.use_moe:
                 ffn_comp = compact_rows(pb.ffn_critical, Cf,
                                         leader=pb.ffn_leader - start,
                                         window=w)
-            x = _residual_ffn(cfg, blk, bp, x, h, ffn_comp=ffn_comp,
-                              compute_backend=compute_backend)
+            x = _residual_ffn(
+                cfg, blk, bp, x, h,
+                ffn_leader=(pb.ffn_leader - start if scfg.ffn_sparsity
+                            else None),
+                ffn_comp=ffn_comp, compute_backend=compute_backend)
         counts.append(cnt)
     x_last = x[:, valid - 1:valid]
     return (head_logits(cfg, params, x_last), kv_any,

@@ -14,8 +14,9 @@ Serving-specific honesty notes:
   is a per-row head mixture); the K/V projections stay dense *unless*
   the horizon-finalized prune vote is active with ``vote_horizon == 1``
   (``kv_rows``): only then are a chunk's own pruned columns skipped
-  before projection (reference package; not ported yet).  The ``kv`` component
-  reports that share on its own so the saving is attributable.
+  before projection (:func:`~repro_torch.sparse_compute.packed.
+  packed_project_kv`).  The ``kv`` component reports that share on its
+  own so the saving is attributable.
 * attention cost is the packed row count times *all columns seen so
   far* (cross-chunk causal attention), for dense and packed alike.
 * padded chunk rows are charged like real rows: the engine executes

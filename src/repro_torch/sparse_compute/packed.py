@@ -8,6 +8,9 @@ Both operations dispatch through the compute-backend registry
   serving prefill packs Q to the **cross-head union** of critical rows, so
   per-head leader recovery reads slots that were actually computed and a
   single ``(C, D) @ (D, H*Dh)`` product stays dense.
+* :func:`packed_project_kv` -- K/V projection of a packed column subset
+  (the ``vote_horizon == 1`` keep decision), K RoPE'd at the columns'
+  original positions: pruned columns are never projected.
 * :func:`packed_mlp` -- the dense (gated) MLP on FFN-critical token rows
   with leader broadcast.  The down-projection runs on rows that are
   already packed, so it is a plain ``torch.matmul``.
@@ -23,7 +26,7 @@ from repro_torch.models.common import (Activations, apply_rope, rms_norm,
 
 from .backend import get_compute_backend
 
-__all__ = ["packed_project_q", "packed_mlp"]
+__all__ = ["packed_project_q", "packed_project_kv", "packed_mlp"]
 
 
 def packed_project_q(cfg, p: dict, xn: torch.Tensor, positions: torch.Tensor,
@@ -48,6 +51,37 @@ def packed_project_q(cfg, p: dict, xn: torch.Tensor, positions: torch.Tensor,
     pos_p = positions.index_select(0, perm.long())[None, :]   # (1, C)
     sin, cos = rope_freqs(pos_p, Dh, cfg.rope_theta)
     return apply_rope(q, sin[:, None, None], cos[:, None, None])
+
+
+def packed_project_kv(cfg, p: dict, xn: torch.Tensor,
+                      positions: torch.Tensor, perm: torch.Tensor,
+                      backend: str):
+    """Project K/V for a packed column subset (B = 1, structured layout).
+
+    xn: (1, L, D) normalized block input; positions: (L,) original slot
+    ids; perm: (C,) int32 packed source rows.  Returns ``(k, v)`` of shape
+    ``(1, KV, C, Dh)`` whose slot ``c`` is row ``perm[c]`` of
+    :func:`repro_torch.models.attention.project_kv`'s output (k-norm and
+    RoPE are row-wise).  The packed backends sum the products in float64
+    and round once, so ``packed_torch`` and ``packed_cuda`` give the same
+    bits; ``dense`` takes rows of the full product.
+    """
+    D, KV, Dh = cfg.d_model, cfg.n_kv_heads, cfg.resolved_head_dim
+    C = perm.shape[0]
+    be = get_compute_backend(backend)
+    x2 = xn[0].contiguous()
+    perm = perm.to(torch.int32).contiguous()
+    kg = be.gathered_matmul(x2, p["wk"].reshape(D, KV * Dh).contiguous(),
+                            perm)
+    vg = be.gathered_matmul(x2, p["wv"].reshape(D, KV * Dh).contiguous(),
+                            perm)
+    k = kg.reshape(1, C, KV, Dh).permute(0, 2, 1, 3).to(xn.dtype)
+    v = vg.reshape(1, C, KV, Dh).permute(0, 2, 1, 3).to(xn.dtype)
+    if cfg.qk_norm:
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    pos_p = positions.index_select(0, perm.long())[None, :]   # (1, C)
+    sin, cos = rope_freqs(pos_p, Dh, cfg.rope_theta)
+    return apply_rope(k, sin[:, None], cos[:, None]), v
 
 
 def packed_mlp(cfg, p: dict, x: torch.Tensor, comp: Compaction,

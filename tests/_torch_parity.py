@@ -4,7 +4,10 @@ weights, and numpy inputs from a seed.  JAX stays on the CPU."""
 
 from __future__ import annotations
 
+import dataclasses
+
 import jax
+import jax.numpy as jnp
 import numpy as np
 import torch
 
@@ -12,9 +15,14 @@ from repro.configs.base import ArchConfig as JArchConfig
 from repro.configs.base import BlockCfg as JBlockCfg
 from repro.core.spls import SPLSConfig as JSPLSConfig
 from repro.models import init_params as jax_init_params
+from repro.serving import (PagedServingEngine as JEngine, Request as JRequest,
+                           ServeConfig as JServe)
 from repro_torch.configs.base import ArchConfig as TArchConfig
 from repro_torch.configs.base import BlockCfg as TBlockCfg
 from repro_torch.core.spls import SPLSConfig as TSPLSConfig
+from repro_torch.serve_batch import demo_config
+from repro_torch.serving import (PagedServingEngine as TEngine,
+                                 Request as TRequest, ServeConfig as TServe)
 from repro_torch.weights import params_from_jax
 
 jax.config.update("jax_platform_name", "cpu")
@@ -71,3 +79,45 @@ def n(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+_DEMO_PARAMS = {}
+
+
+def demo_pair(spls: bool, k_ratio: float, s_threshold: float):
+    """(reference config, port config, reference params, port params) of
+    the ``serve-demo`` model of ``repro_torch.serve_batch``."""
+    tc = demo_config(spls, k_ratio, s_threshold)
+    sp = dataclasses.asdict(tc.spls)
+    jc = JArchConfig(
+        name=tc.name, n_layers=tc.n_layers, d_model=tc.d_model,
+        n_heads=tc.n_heads, n_kv_heads=tc.n_kv_heads, head_dim=tc.head_dim,
+        d_ff=tc.d_ff, vocab_size=tc.vocab_size,
+        period=(JBlockCfg(mixer="attn"),), remat=False,
+        spls=JSPLSConfig(**sp))
+    key = (spls, k_ratio, s_threshold)
+    if key not in _DEMO_PARAMS:
+        jp = jax_init_params(jc, jax.random.PRNGKey(0))
+        _DEMO_PARAMS[key] = (
+            jp, params_from_jax(jax.tree.map(np.asarray, jp), device="cpu"))
+    return (jc, tc) + _DEMO_PARAMS[key]
+
+
+def serve_both(jc, tc, jp, tp, prompts, kw, max_new=4):
+    """Serve the prompts through both packages' paged engines with the same
+    ``ServeConfig`` fields; ``[(reference engine, outputs), (port engine,
+    outputs)]``."""
+    out = []
+    for Engine, Req, Serve, cfg, params, extra in (
+            (JEngine, JRequest, JServe, jc, jp, {}),
+            (TEngine, TRequest, TServe, tc, tp, {"device": "cpu"})):
+        eng = Engine(cfg, params, Serve(**kw), **extra)
+        reqs = [Req(rid=i, prompt=(jnp.asarray(p) if Engine is JEngine
+                                   else p), max_new_tokens=max_new)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_drained(max_ticks=2000)
+        assert all(r.done for r in reqs)
+        out.append((eng, [r.output for r in reqs]))
+    return out

@@ -167,7 +167,15 @@ def test_chunk_step_validates_inputs():
         tpm.paged_prefill_chunk_spls(tc, tp, cache, pred, pos, table, 0,
                                      torch.zeros(1, 6, dtype=torch.int32),
                                      6, 2)
-    with pytest.raises(NotImplementedError, match="packed compute"):
+    with pytest.raises(ValueError, match="packed compute backend"):
         tpm.paged_prefill_chunk_spls(tc, tp, cache, pred, pos, table, 0,
                                      torch.zeros(1, 8, dtype=torch.int32),
-                                     8, 2, compute_backend="dense")
+                                     8, 2, kv_capacity=4,
+                                     compute_backend="dense",
+                                     live=torch.ones(P * PS, dtype=torch.bool),
+                                     last_keep=7)
+    with pytest.raises(ValueError, match="liveness mask"):
+        tpm.paged_prefill_chunk_spls(tc, tp, cache, pred, pos, table, 0,
+                                     torch.zeros(1, 8, dtype=torch.int32),
+                                     8, 2, kv_capacity=4,
+                                     compute_backend="packed_torch")

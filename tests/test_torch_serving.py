@@ -4,7 +4,8 @@ preemptions, prefill chunks, FLOPs saved), with random and repeated-token
 prompts over several chunks, under a pool small enough to preempt, and for
 a non-causal model (whole-prompt prefill).
 Also: entry points refuse to guess a device, unsupported configurations
-name their ROADMAP item, and the port imports neither jax nor repro."""
+name their ROADMAP item (invalid ones raise as in the reference), and the
+port imports neither jax nor repro."""
 
 from __future__ import annotations
 
@@ -134,15 +135,19 @@ def test_default_device_is_the_card():
         TEngine(tc, tp, TServe())
 
 
-@pytest.mark.parametrize("change,item", [
-    (dict(vote_horizon=1), "deferred item 3"),
-    (dict(greedy=False), "deferred item 5"),
-    (dict(compute_backend="dense"), "deferred item 2"),
+@pytest.mark.parametrize("change,error,match", [
+    (dict(greedy=False), NotImplementedError, "deferred item 5"),
+    (dict(vote_horizon=0), ValueError, "vote_horizon must be >= 1"),
+    (dict(vote_horizon=1, spls_page_prune=False), ValueError,
+     "vote_horizon requires SPLS"),
 ])
-def test_unported_configurations_raise(change, item):
+def test_unported_configurations_raise(change, error, match):
+    """Temperature sampling is not ported and names its ROADMAP item; the
+    vote horizon refuses what the reference refuses (a horizon below 1, a
+    horizon without page pruning)."""
     jc, tc = cfg_pair("mha")
     _, tp = params_pair(jc)
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(error, match=match):
         TEngine(tc, tp, TServe(**change), device="cpu")
 
 
