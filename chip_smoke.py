@@ -24,8 +24,10 @@ and nothing falls back to the CPU):
    (``library_kernel_ms``) is the device time per call that
    ``torch.profiler`` records for the kernel itself (for all of the
    library call's device work).  ptxas's registers and spills of every
-   kernel function.  The decode kernels also run G 16 and bf16 cases
-   (bf16 within one bf16 ulp of the plain output, or 1e-5).  Then the host
+   kernel function.  The decode kernels also run G 16, Dh 120 and bf16
+   cases (bf16 within one bf16 ulp of the plain output, or 1e-5);
+   ``flash_attention`` also the model families' GQA shapes (G 2, Dh 128;
+   G 4, Dh 120 with a window; G 16).  Then the host
    path of a ``gather_rows`` and a ``paged_flash_decode`` call, phase by
    phase (``time.perf_counter_ns`` over 10^4 calls).
 3. Serve: full-width BERT-Base (12 x 768, vocab 30522, random weights from
@@ -69,6 +71,29 @@ and nothing falls back to the CPU):
    "bfloat16"`` on the three engine paths of phase 3, through the kernels
    and through the plain backends; every kernel of a path must launch, and
    the greedy-token mismatches are reported.
+6. Model families at full width (``repro_torch.configs.registry``; random
+   weights from the seed, drawn on the card), each through the kernels and
+   through the plain backends: (i) qwen3-0.6b (28 x 1024, float32) with
+   the paper's SPLS knobs through ``PagedServingEngine`` and packed compute
+   (``gathered_matmul``, ``gather_rows``, ``paged_flash_decode``), the
+   traffic of phase 3; (j) the same model without SPLS through
+   ``ServingEngine`` (``flash_attention``, ``flash_decode``), whose tokens
+   must equal a paged run's without SPLS; (k) olmoe-1b-7b (16 x 2048, 64
+   experts top 8, float32), paged, the MoE FFN in the chunk step and the
+   decode tick; (l) gemma2-27b at its width, one local (window 4096) and
+   one global block, bf16, 2 prompts of 4352 tokens through both engines,
+   and its logits kernels against plain (prefill, a dense decode step, a
+   paged decode tick); (m) mamba2-370m (48 x 1024)
+   through ``ServingEngine`` against a plain ``prefill`` + ``decode_step``
+   loop (no kernel); (n) jamba-v0.1-52b, one period of 8 layers (Mamba,
+   MoE, attention), bf16, through ``ServingEngine``, and its logits;
+   (o) ``repro_torch.launch.serve`` on every architecture of the registry,
+   dense and ``--paged --spls`` (the reference's skips kept), and once as
+   ``python -m`` (its launches are reported, not counted as a path's).
+   Float32 paths must give every token equal to the plain backends'; bf16
+   paths report the mismatches and hold the logits to 1 bf16 ulp of max
+   |plain| after prefill and 4 ulps after a decode step, with a control
+   (the windows dropped) reported beside each tolerance.
 
 The last lines are the ``{"kernels": [...]}`` line, the card's
 ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
@@ -79,6 +104,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -339,11 +365,13 @@ def check_gather_rows(K, gen) -> dict:
 
 
 def _decode_inputs(gen, B, KV, G, Dh, N, ps, P, kv_lens, compact: bool,
-                   dtype=torch.float32):
+                   dtype=torch.float32, q_scale=1.0):
     """Random pool + block tables for rows with the given kv_len; with
-    ``compact`` the pos ids skip (an SPLS-compacted layout: id != slot)."""
+    ``compact`` the pos ids skip (an SPLS-compacted layout: id != slot).
+    ``q_scale`` widens the scores, so that a softcap bites."""
     dev = "cuda"
-    q = torch.randn(B, KV, G, Dh, device=dev, generator=gen).to(dtype)
+    q = (torch.randn(B, KV, G, Dh, device=dev, generator=gen)
+         * q_scale).to(dtype)
     kp = torch.randn(KV, N, ps, Dh, device=dev, generator=gen).to(dtype)
     vp = torch.randn(KV, N, ps, Dh, device=dev, generator=gen).to(dtype)
     # null page 0 holds garbage that must never be read live
@@ -420,6 +448,11 @@ def check_paged_decode(K, gen) -> dict:
              ("bf16_gqa_g16_window", dict(G=16, lens=path_lens,
                                           compact=True, window=100,
                                           dtype=bf16)),
+             # gemma2's local block in bf16: G 2, Dh 128, window, softcap
+             ("bf16_gqa_g2_window_softcap", dict(G=2, lens=path_lens,
+                                                 compact=True, Dh=128,
+                                                 window=100, softcap=50.0,
+                                                 q_scale=8.0, dtype=bf16)),
              ("kv_len_0_and_full_table", dict(G=1, lens=[0, P * ps, 37, 1],
                                               compact=True)),
              ("window_ends_inside_a_split", dict(G=1, lens=path_lens,
@@ -432,6 +465,11 @@ def check_paged_decode(K, gen) -> dict:
                                    Dh=20, window=90)),
              ("bf16_dh_20_scalar", dict(G=1, lens=path_lens, compact=False,
                                         Dh=20, dtype=bf16)),
+             # h2o-danube3's head width, GQA G 4 and its window
+             ("dh_120_gqa_g4", dict(G=4, lens=path_lens, compact=True,
+                                    Dh=120, window=64)),
+             ("bf16_dh_120_gqa_g4", dict(G=4, lens=path_lens, compact=False,
+                                         Dh=120, dtype=bf16)),
              # 8 scalar loads a lane: one slot at a time
              ("dh_250_scalar", dict(G=1, lens=path_lens, compact=True,
                                     Dh=250)),
@@ -441,7 +479,8 @@ def check_paged_decode(K, gen) -> dict:
     for name, c in cases:
         Pc, Dc = c.get("P", P), c.get("Dh", Dh)
         inp = _decode_inputs(gen, B, KV, c["G"], Dc, N, ps, Pc, c["lens"],
-                             c["compact"], c.get("dtype", torch.float32))
+                             c["compact"], c.get("dtype", torch.float32),
+                             c.get("q_scale", 1.0))
         kw = dict(softcap=c.get("softcap"), window=c.get("window"))
         before = K.paged_flash_decode.launches
         got = K.paged_flash_decode(*inp, **kw)
@@ -677,14 +716,22 @@ def check_flash_attention(K, gen) -> dict:
              ("ragged_Lq33_Lk97", dict(G=1, L=33, Lk=97, keep_dead=0.3),
               dict(causal=False)),
              ("dh_128", dict(G=1, L=L, keep_dead=0.3, packed=True,
-                             Dh=128), dict(causal=False))]
+                             Dh=128), dict(causal=False)),
+             # the model families' shapes: qwen3 (G 2, Dh 128), h2o-danube3
+             # (G 4, Dh 120, a window), llama3 (G 16)
+             ("qwen3", dict(G=2, H=16, L=L, Dh=128), dict(causal=True)),
+             ("danube", dict(G=4, H=32, L=L, Dh=120),
+              dict(causal=True, window=64)),
+             ("llama3_g16", dict(G=16, H=16, L=L, Dh=128),
+              dict(causal=True))]
     results = []
     for name, shape, kw in cases:
         Bc = shape.pop("B", B)
         G = shape.pop("G")
         Lc = shape.pop("L")
         Dc = shape.pop("Dh", Dh)
-        q, k, v, keep, q_pos = _attn_case(gen, Bc, KV // G, G, Lc, Dc,
+        Hc = shape.pop("H", KV)
+        q, k, v, keep, q_pos = _attn_case(gen, Bc, Hc // G, G, Lc, Dc,
                                           **shape)
         got = K.flash_attention(q, k, v, kv_keep=keep, q_pos=q_pos, **kw)
         ref = K.flash_attention_plain(q, k, v, kv_keep=keep, q_pos=q_pos,
@@ -695,8 +742,8 @@ def check_flash_attention(K, gen) -> dict:
             _fail(f"flash_attention case {name}: max |err| {err} > {tol}")
         if name == "all_dead_keep_row" and got[0, KV // 2].abs().max() != 0:
             _fail("flash_attention: an all-dead keep row must give zeros")
-        results.append({"case": name, "B": Bc, "Dh": Dc, "max_abs_err": err,
-                        "tolerance": tol})
+        results.append({"case": name, "B": Bc, "H": Hc, "G": G, "Dh": Dc,
+                        "max_abs_err": err, "tolerance": tol})
     # timed at the shape of paths (b) and (c), B 1, and of path (d), B 8
     row = _time_flash_attention(K, gen, B, KV, L, Dh)
     path_d = _time_flash_attention(K, gen, 8, KV, L, Dh)
@@ -761,6 +808,11 @@ def check_flash_decode(K, gen) -> dict:
              ("dh_256_softcap", dict(G=2, pos=path_pos(), Dh=256,
                                      q_scale=4.0), dict(softcap=30.0)),
              ("dh_20_scalar", dict(G=1, pos=path_pos(), Dh=20), {}),
+             # h2o-danube3's head width, GQA G 4 and a window
+             ("dh_120_gqa_g4", dict(G=4, pos=path_pos(), Dh=120),
+              dict(window=64)),
+             ("bf16_dh_120_gqa_g4", dict(G=4, pos=path_pos(), Dh=120,
+                                         dtype=torch.bfloat16), {}),
              ("dh_20_gqa_g4", dict(G=4, pos=[299, 0, 17, 511], Dh=20),
               dict(window=70)),
              # two passes of 8 query rows over each share
@@ -771,6 +823,11 @@ def check_flash_decode(K, gen) -> dict:
              ("bf16", dict(G=1, pos=path_pos(), dtype=torch.bfloat16), {}),
              ("bf16_gqa_g16", dict(G=16, pos=path_pos(), KV=32,
                                    dtype=torch.bfloat16), dict(window=100)),
+             # gemma2's local block in bf16: G 2, Dh 128, window, softcap
+             ("bf16_gqa_g2_window_softcap", dict(G=2, pos=path_pos(),
+                                                 Dh=128, q_scale=4.0,
+                                                 dtype=torch.bfloat16),
+              dict(window=100, softcap=50.0)),
              ("bf16_dh_20_scalar", dict(G=2, pos=[299, 0, 17, 511], Dh=20,
                                         dtype=torch.bfloat16), {}),
              # 8 scalar loads a lane: one slot at a time
@@ -1032,15 +1089,11 @@ def _prompts(vocab: int) -> list:
     return prompts
 
 
-def _requests(Request, vocab: int):
-    return [Request(rid=i, prompt=p, max_new_tokens=16)
-            for i, p in enumerate(_prompts(vocab))]
-
-
-def _serve_run(K, Engine, cfg, params, scfg):
+def _serve_run(K, Engine, cfg, params, scfg, prompts=None, max_new=16):
     """A warm-up engine (library handles, first launches), then a fresh
-    engine on the warm process serves the 8 requests; the launch counts
-    are set to 0 just before the run and read just after it."""
+    engine on the warm process serves the requests (default: the 8 prompts
+    of 384 tokens, 16 new tokens each); the launch counts are set to 0 just
+    before the run and read just after it."""
     from repro_torch.serving import Request
 
     warm = Engine(cfg, params, scfg)
@@ -1051,7 +1104,9 @@ def _serve_run(K, Engine, cfg, params, scfg):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     eng = Engine(cfg, params, scfg)
-    reqs = _requests(Request, cfg.vocab_size)
+    prompts = _prompts(cfg.vocab_size) if prompts is None else prompts
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=max_new)
+            for i, p in enumerate(prompts)]
     for r in reqs:
         eng.submit(r)
     K.reset_launch_counts()
@@ -1066,19 +1121,24 @@ def _serve_run(K, Engine, cfg, params, scfg):
 
 
 def serve_path(K, path: str, Engine, params, cfg, scfg, plain_cfg,
-               plain_scfg, must_launch, extra=None) -> dict:
+               plain_scfg, must_launch, extra=None, prompts=None,
+               max_new=16, agree="first") -> tuple:
     """Serve the requests through the kernels, check that every kernel of
     this path was launched, then serve them again through the plain
-    backends on the card (which launch no kernel): every request's first
-    token must agree.  Returns this path's launch counts."""
+    backends on the card (which launch no kernel).  ``agree`` is what must
+    equal the plain backends' tokens: ``"first"`` every request's first
+    token, ``"all"`` every token (the float32 model families), ``None``
+    nothing (bf16: the mismatches are reported).  Returns this path's
+    launch counts and the kernel run's tokens."""
     eng, reqs, wall, launches, peak = _serve_run(K, Engine, cfg, params,
-                                                 scfg)
+                                                 scfg, prompts, max_new)
     zero = [k for k in must_launch if launches[k] == 0]
     if zero:
         _fail(f"kernels never launched on the {path} path: {zero}")
     st = eng.stats
     n_tok = sum(len(r.output) for r in reqs)
-    report = {"serve": path, "requests": len(reqs), "prompt_tokens": 384,
+    report = {"serve": path, "requests": len(reqs),
+              "prompt_tokens": len(reqs[0].prompt),
               "new_tokens": n_tok, "wall_s": wall, "tok_per_s": n_tok / wall,
               "peak_pages": st.get("peak_pages"),
               "preemptions": st.get("preemptions"),
@@ -1087,13 +1147,14 @@ def serve_path(K, path: str, Engine, params, cfg, scfg, plain_cfg,
     report.update(extra(eng, launches, wall) if extra else {})
     print(json.dumps(report, default=str))
 
-    _, reqs_p, wall_p, launches_p, _ = _serve_run(K, Engine, plain_cfg,
-                                                  params, plain_scfg)
+    _, reqs_p, wall_p, launches_p, _ = _serve_run(
+        K, Engine, plain_cfg, params, plain_scfg, prompts, max_new)
     if any(launches_p.values()):
         _fail(f"the plain backends of the {path} path launched kernels: "
               f"{launches_p}")
     first_bad = [r.rid for r, p in zip(reqs, reqs_p)
                  if r.output[:1] != p.output[:1]]
+    all_bad = [r.rid for r, p in zip(reqs, reqs_p) if r.output != p.output]
     same = sum(a == b for r, p in zip(reqs, reqs_p)
                for a, b in zip(r.output, p.output))
     print(json.dumps({
@@ -1101,14 +1162,35 @@ def serve_path(K, path: str, Engine, params, cfg, scfg, plain_cfg,
         "plain_backends": [plain_cfg.attn_backend, plain_scfg.attn_backend],
         "plain_compute": plain_scfg.compute_backend, "wall_s": wall_p,
         "first_token_mismatch": first_bad,
-        "token_agreement": f"{same}/{n_tok}",
+        "token_agreement": f"{same}/{n_tok}", "must_agree": agree,
         "note": "SPLS thresholds can turn a float32 last-bit difference "
                 "into another plan, so tokens after the first may differ"},
         default=str))
-    if first_bad:
-        _fail(f"{path}: first tokens differ from the plain backends for "
-              f"requests {first_bad}")
-    return launches
+    bad = {"first": first_bad, "all": all_bad, None: []}[agree]
+    if bad:
+        _fail(f"{path}: tokens ({agree}) differ from the plain backends for "
+              f"requests {bad}")
+    return launches, [list(r.output) for r in reqs]
+
+
+def _chunk_stats(n_layers: int):
+    """The paged paths' extra report: chunks, capacity picks, launches a
+    chunk and decode ticks."""
+    def stats(eng, launches, wall=None):
+        st = eng.stats
+        chunks = st["prefill_chunks"]
+        out = {"prefill_chunks": chunks, "compute_backend":
+               st["compute_backend"]}
+        for cap in ("capacity_q", "capacity_ffn", "capacity_kv"):
+            if cap in st:
+                out[cap] = st[cap]
+        for name in ("gathered_matmul", "gather_rows"):
+            if launches[name]:
+                out[f"{name}_per_chunk"] = launches[name] / chunks
+        out["paged_flash_decode_ticks"] = \
+            launches["paged_flash_decode"] / n_layers
+        return out
+    return stats
 
 
 def horizon_report(eng, launches, wall) -> dict:
@@ -1171,22 +1253,9 @@ def serve(K) -> dict:
         spls=dataclasses.replace(CONFIG.spls, causal=True))
     params = init_params(causal, seed=SEED)
 
-    def chunk_stats(eng, launches, wall=None):
-        st = eng.stats
-        chunks = st["prefill_chunks"]
-        out = {"prefill_chunks": chunks, "compute_backend":
-               st["compute_backend"]}
-        for cap in ("capacity_q", "capacity_ffn", "capacity_kv"):
-            if cap in st:
-                out[cap] = st[cap]
-        for name in ("gathered_matmul", "gather_rows"):
-            if launches[name]:
-                out[f"{name}_per_chunk"] = launches[name] / chunks
-        out["paged_flash_decode_ticks"] = \
-            launches["paged_flash_decode"] / causal.n_layers
-        return out
+    chunk_stats = _chunk_stats(causal.n_layers)
 
-    paths["causal_paged_chunked"] = serve_path(
+    paths["causal_paged_chunked"], _ = serve_path(
         K, "causal_paged_chunked: bert-base-esact causal, SPLS, "
            "packed_cuda + cuda_paged_decode", PagedServingEngine, params,
         causal,
@@ -1203,7 +1272,7 @@ def serve(K) -> dict:
     # The baseline SPLS pruning is measured against
     nospls = dataclasses.replace(
         causal, spls=dataclasses.replace(causal.spls, enabled=False))
-    paths["causal_paged_chunked_nospls"] = serve_path(
+    paths["causal_paged_chunked_nospls"], _ = serve_path(
         K, "causal_paged_chunked_nospls: bert-base-esact causal, no SPLS, "
            "dense + cuda_paged_decode", PagedServingEngine, params, nospls,
         ServeConfig(compute_backend="dense",
@@ -1214,7 +1283,7 @@ def serve(K) -> dict:
         ("paged_flash_decode",), chunk_stats)
 
     # g. SPLS as in (a) on the reference's default simulation-mode compute
-    paths["causal_paged_chunked_spls_dense"] = serve_path(
+    paths["causal_paged_chunked_spls_dense"], _ = serve_path(
         K, "causal_paged_chunked_spls_dense: bert-base-esact causal, SPLS, "
            "dense + cuda_paged_decode", PagedServingEngine, params, causal,
         ServeConfig(compute_backend="dense",
@@ -1231,7 +1300,7 @@ def serve(K) -> dict:
         causal.spls, k_ratio=0.05, s_threshold=0.9))
     hbase = dict(base, vote_horizon=1, spls_prune_vote=1.0,
                  capacity_margin=1.0)
-    paths["causal_paged_horizon1_packed"] = serve_path(
+    paths["causal_paged_horizon1_packed"], _ = serve_path(
         K, "causal_paged_horizon1_packed: bert-base-esact causal, SPLS, "
            "vote_horizon 1, packed_cuda + cuda_paged_decode",
         PagedServingEngine, params, horizon,
@@ -1252,7 +1321,7 @@ def serve(K) -> dict:
     on = lambda name: dataclasses.replace(CONFIG, attn_backend=name)
     per_layer = lambda name: (lambda eng, launches, wall: {
         f"{name}_per_layer": launches[name] / CONFIG.n_layers})
-    paths["noncausal_paged_full_prefill"] = serve_path(
+    paths["noncausal_paged_full_prefill"], _ = serve_path(
         K, "noncausal_paged_full_prefill: bert-base-esact (non-causal), "
            "SPLS, cuda_flash + cuda_paged_decode (auto)",
         PagedServingEngine, params, CONFIG,
@@ -1266,7 +1335,7 @@ def serve(K) -> dict:
 
     # 3. the same model through the dense fixed-slot engine
     dense = dict(n_slots=4, max_len=512)
-    paths["noncausal_dense_engine"] = serve_path(
+    paths["noncausal_dense_engine"], _ = serve_path(
         K, "noncausal_dense_engine: bert-base-esact (non-causal), SPLS, "
            "cuda_flash + cuda_flash_decode", ServingEngine, params,
         on("cuda_flash"), ServeConfig(attn_backend="cuda_flash_decode",
@@ -1357,6 +1426,506 @@ def serve_bf16(K) -> dict:
                       "note": "kernels against the plain backends on the "
                               "card; mismatches reported, not failed"}))
     return report
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the model families at full width, paths (i)-(o)
+# ---------------------------------------------------------------------------
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (tuple, list)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _full_width(arch_id: str, **kw):
+    """An architecture of the registry at its published widths, with
+    ``kw`` replaced (a cut depth, the compute dtype, SPLS)."""
+    from repro_torch.configs.registry import get_config
+    return dataclasses.replace(get_config(arch_id), remat=False, **kw)
+
+
+def _params(cfg):
+    """Random weights from the seed, drawn on the card."""
+    from repro_torch.models import init_params
+
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=SEED)
+    torch.cuda.synchronize()
+    leaves = list(_leaves(params))
+    print(json.dumps({
+        "params": cfg.name, "n_layers": cfg.n_layers,
+        "count": sum(t.numel() for t in leaves),
+        "bytes": sum(t.numel() * t.element_size() for t in leaves),
+        "param_dtype": cfg.param_dtype, "compute_dtype": cfg.compute_dtype,
+        "init_s": time.perf_counter() - t0}))
+    return params
+
+
+def _free() -> None:
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _random_prompts(vocab: int, n: int, length: int) -> list:
+    rng = np.random.default_rng(SEED + length)
+    return [rng.integers(0, vocab, length).astype(np.int32)
+            for _ in range(n)]
+
+
+class _MoECalls:
+    """Counts the MoE FFN's calls by input shape (B, L) while on: the
+    chunk step calls it at (1, chunk), the decode tick at (slots, 1)."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self.mod, self.orig, self.calls = moe, moe.moe_forward, {}
+
+    def __enter__(self):
+        def counted(cfg, p, x, capacity=None):
+            key = f"{tuple(x.shape[:2])}"
+            self.calls[key] = self.calls.get(key, 0) + 1
+            return self.orig(cfg, p, x, capacity)
+        self.mod.moe_forward = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.moe_forward = self.orig
+
+
+def _no_window(cfg):
+    """``cfg`` with every block's window dropped: the control of the bf16
+    logit checks (a kernel that ignored the window)."""
+    return dataclasses.replace(cfg, period=tuple(
+        dataclasses.replace(b, window=None) for b in cfg.period))
+
+
+def _logit_err(got, ref) -> float:
+    # one batch row at a time: a float32 copy of 4352 x 256000 logits is
+    # 4.5 GB
+    return max(float((g.float() - r.float()).abs().max())
+               for g, r in zip(got, ref))
+
+
+def _hold_logits(path: str, what: str, got, ref, n_ulps: int, row: dict,
+                 control=None) -> None:
+    """Kernel route ``got`` against the plain route ``ref``: max |err|
+    within ``n_ulps`` bf16 ulps of max |plain|.  A ``control`` (the kernel
+    route with the window dropped) is reported beside the tolerance."""
+    err = _logit_err(got, ref)
+    tol = n_ulps * float(_bf16_ulp(ref.abs().max()))
+    agree = int((got[:, -1].float().argmax(-1)
+                 == ref[:, -1].float().argmax(-1)).sum())
+    row[what] = {"max_abs_err": err, "tolerance": tol,
+                 "tolerance_rule": f"{n_ulps} bf16 ulp of max |plain|",
+                 "last_argmax_agree": f"{agree}/{got.shape[0]}"}
+    if control is not None:
+        c_err = _logit_err(control, ref)
+        row[what]["control_window_dropped"] = {
+            "max_abs_err": c_err, "over_tolerance": c_err > tol}
+    if not all(torch.isfinite(g).all() for g in got) or not err <= tol:
+        _fail(f"{path}: bf16 {what} logits, kernels vs plain: max |err| "
+              f"{err} > {tol} ({n_ulps} bf16 ulp of max |plain|)")
+
+
+def _bf16_logits(path: str, params, cfg, prompts, paged=False) -> dict:
+    """A bf16 model's logits through the kernels against the plain
+    backends on the card, on the same inputs: ``prefill`` of the prompts
+    as one batch (``cuda_flash`` / ``torch_flash``), held to 1 bf16 ulp of
+    max |plain| (B4 equals its plain version before the cast); then one
+    ``decode_step`` from each route's own cache on the plain route's
+    greedy token (``cuda_flash_decode`` / ``torch_flash_decode``), held to
+    4 ulps (B5's online softmax moves an attention output by one ulp, which
+    the later layers carry).  With ``paged``, also one paged decode tick
+    (``cuda_paged_decode`` / ``torch_paged_decode``) over the plain
+    prefill's K/V scattered into pages, held to 4 ulps.  Where a block has
+    a window, the kernel route runs once more with the windows dropped:
+    that control's error is reported beside each tolerance."""
+    from repro_torch.models import decode_step, prefill
+
+    toks = torch.tensor(np.stack(prompts), device="cuda")
+    B, L = toks.shape
+    routes = ["torch", "cuda"]
+    if any(b.window for b in cfg.period):
+        routes.append("control")
+
+    def on(route, kind):
+        c = _no_window(cfg) if route == "control" else cfg
+        name = "torch" if route == "torch" else "cuda"
+        return c, f"{name}_{kind}"
+
+    row = {"bf16_logits": path, "batch": [B, L]}
+    logits, caches = {}, {}
+    for r in routes:
+        c, name = on(r, "flash")
+        logits[r], caches[r] = prefill(
+            dataclasses.replace(c, attn_backend=name), params, toks,
+            max_len=L + 8)
+    _hold_logits(path, "prefill", logits["cuda"], logits["torch"], 1, row,
+                 logits.get("control"))
+    nxt = logits["torch"][:, -1].float().argmax(-1)[:, None].to(torch.int32)
+    del logits
+    _free()
+    pos = torch.full((B,), L, dtype=torch.int32, device="cuda")
+    dec = {}
+    for r in routes:
+        c, name = on(r, "flash_decode")
+        dec[r] = decode_step(dataclasses.replace(c, attn_backend=name),
+                             params, caches[r], nxt, pos)[0]
+    _hold_logits(path, "decode_step", dec["cuda"], dec["torch"], 4, row,
+                 dec.get("control"))
+    if paged:
+        row.update(_paged_tick(path, params, cfg, caches["torch"], L, nxt,
+                               pos, routes))
+    print(json.dumps(row))
+    del dec, caches
+    _free()
+    return row
+
+
+def _paged_tick(path: str, params, cfg, dense_cache, L: int, nxt, pos,
+                routes) -> dict:
+    """One paged decode tick per route over the same page pool: the first
+    ``L`` slots of each row of ``dense_cache`` (a plain ``prefill``'s)
+    scattered into pages of 16, then ``paged_decode_step`` on ``nxt`` at
+    ``pos`` (each route writes the token's K/V into slot ``L`` before it
+    reads it)."""
+    from types import SimpleNamespace
+
+    from repro_torch.serving.paged_model import (paged_decode_step,
+                                                 scatter_prefill)
+    from repro_torch.serving.pager import init_paged_cache, init_pos_pages
+
+    B, ps = nxt.shape[0], 16
+    P = -(-(L + 1) // ps)
+    cache = init_paged_cache(cfg, 1 + B * P, ps, "cuda")
+    pos_pages = init_pos_pages(1 + B * P, ps, "cuda")
+    # page 0 is the null page
+    tables = (1 + torch.arange(B * P, dtype=torch.int32,
+                               device="cuda")).view(B, P)
+    keep = torch.arange(L, device="cuda")
+    for b in range(B):
+        flat = tables[b, keep // ps].long() * ps + keep % ps
+        scatter_prefill(cache, pos_pages, tuple(
+            SimpleNamespace(k=c.k[:, b:b + 1], v=c.v[:, b:b + 1])
+            for c in dense_cache), keep, flat)
+    kv_len = torch.full((B,), L, dtype=torch.int32, device="cuda")
+    out = {}
+    for r in routes:
+        c = _no_window(cfg) if r == "control" else cfg
+        name = "torch" if r == "torch" else "cuda"
+        out[r] = paged_decode_step(c, params, cache, pos_pages, tables,
+                                   kv_len, pos, nxt,
+                                   backend=f"{name}_paged_decode")
+    row = {}
+    _hold_logits(path, "paged_decode_tick", out["cuda"], out["torch"], 4,
+                 row, out.get("control"))
+    return row
+
+
+def families(K) -> dict:
+    """The registry's model families at full width through the engines
+    (random weights from the seed, drawn on the card), each through the
+    kernels and through the plain backends: ``{path: launch counts}``."""
+    from repro_torch.core.spls import SPLSConfig
+    from repro_torch.serving import (PagedServingEngine, ServeConfig,
+                                     ServingEngine)
+
+    paths = {}
+    base = dict(n_slots=4, page_size=16, prefill_chunk=64, max_len=512,
+                spls_prune_vote=0.5)
+    dense = dict(n_slots=4, max_len=512)
+    on = lambda c, name: dataclasses.replace(c, attn_backend=name)
+    per_layer = lambda name, n: (lambda eng, launches, wall: {
+        f"{name}_per_layer": launches[name] / n})
+
+    # i. qwen3-0.6b at full width and depth, float32 (published compute
+    # bf16: a cut), the paper's SPLS knobs, packed compute: the main path
+    t0 = time.perf_counter()
+    qwen = _full_width("qwen3-0.6b", compute_dtype="float32",
+                       spls=SPLSConfig(enabled=True, k_ratio=0.12,
+                                       s_threshold=0.6, f_threshold=6,
+                                       window=8, causal=True))
+    params = _params(qwen)
+    paths["qwen3_paged_spls"], _ = serve_path(
+        K, "qwen3_paged_spls: qwen3-0.6b (28 x 1024, 16 heads, 8 KV heads, "
+           "Dh 128, float32), SPLS, packed_cuda + cuda_paged_decode",
+        PagedServingEngine, params, qwen,
+        ServeConfig(compute_backend="packed_cuda",
+                    attn_backend="cuda_paged_decode", **base),
+        qwen,
+        ServeConfig(compute_backend="packed_torch",
+                    attn_backend="torch_paged_decode", **base),
+        ("gathered_matmul", "gather_rows", "paged_flash_decode"),
+        _chunk_stats(qwen.n_layers), agree="all")
+    print(json.dumps({"phase_s": "qwen3_paged_spls",
+                      "s": time.perf_counter() - t0}))
+
+    # j. the same model without SPLS through the dense engine (B4, B5);
+    # its tokens must equal a paged run's without SPLS
+    t0 = time.perf_counter()
+    nospls = dataclasses.replace(
+        qwen, spls=dataclasses.replace(qwen.spls, enabled=False))
+    paths["qwen3_dense_engine"], dense_tokens = serve_path(
+        K, "qwen3_dense_engine: qwen3-0.6b, no SPLS, cuda_flash + "
+           "cuda_flash_decode", ServingEngine, params,
+        on(nospls, "cuda_flash"),
+        ServeConfig(attn_backend="cuda_flash_decode", **dense),
+        on(nospls, "torch_flash"),
+        ServeConfig(attn_backend="torch_flash_decode", **dense),
+        ("flash_attention", "flash_decode"),
+        per_layer("flash_decode", qwen.n_layers), agree="all")
+    paths["qwen3_paged_nospls"], paged_tokens = serve_path(
+        K, "qwen3_paged_nospls: qwen3-0.6b, no SPLS, dense + "
+           "cuda_paged_decode", PagedServingEngine, params, nospls,
+        ServeConfig(compute_backend="dense",
+                    attn_backend="cuda_paged_decode", **base),
+        nospls,
+        ServeConfig(compute_backend="dense",
+                    attn_backend="torch_paged_decode", **base),
+        ("paged_flash_decode",), _chunk_stats(qwen.n_layers), agree="all")
+    same = sum(a == b for x, y in zip(dense_tokens, paged_tokens)
+               for a, b in zip(x, y))
+    print(json.dumps({"qwen3_dense_vs_paged_nospls":
+                      f"{same}/{sum(map(len, dense_tokens))}"}))
+    if dense_tokens != paged_tokens:
+        _fail("qwen3: the dense engine's tokens differ from the paged "
+              "engine's without SPLS")
+    del params
+    _free()
+    print(json.dumps({"phase_s": "qwen3_dense_engine",
+                      "s": time.perf_counter() - t0}))
+
+    # k. olmoe-1b-7b at full width and depth (64 experts, top 8), float32
+    # (published compute bf16: a cut), paged, no SPLS: MoE in the chunk
+    # step and the decode tick
+    t0 = time.perf_counter()
+    olmoe = _full_width("olmoe-1b-7b", compute_dtype="float32")
+    params = _params(olmoe)
+    with _MoECalls() as moe:
+        paths["olmoe_paged"], _ = serve_path(
+            K, "olmoe_paged: olmoe-1b-7b (16 x 2048, 64 experts top 8, "
+               "float32), no SPLS, dense + cuda_paged_decode",
+            PagedServingEngine, params, olmoe,
+            ServeConfig(compute_backend="dense",
+                        attn_backend="cuda_paged_decode", **base),
+            olmoe,
+            ServeConfig(compute_backend="dense",
+                        attn_backend="torch_paged_decode", **base),
+            ("paged_flash_decode",), _chunk_stats(olmoe.n_layers),
+            agree="all")
+    print(json.dumps({"olmoe_moe_calls_by_shape": moe.calls}))
+    if not {"(1, 64)", "(4, 1)"} <= set(moe.calls):
+        _fail(f"olmoe: the MoE FFN did not run in both the chunk step and "
+              f"the decode tick: {moe.calls}")
+    del params
+    _free()
+    print(json.dumps({"phase_s": "olmoe_paged",
+                      "s": time.perf_counter() - t0}))
+
+    # l. gemma2-27b at full width, depth cut to one period (a local block,
+    # window 4096, and a global one), bf16 as published: prompts of 4352
+    # tokens so the window bites, through both engines, no SPLS
+    t0 = time.perf_counter()
+    gemma = _full_width("gemma2-27b", n_layers=2)
+    params = _params(gemma)
+    prompts = _random_prompts(gemma.vocab_size, 2, 4352)
+    gpaged = dict(n_slots=2, page_size=16, prefill_chunk=256, max_len=4608)
+    gdense = dict(n_slots=2, max_len=4608)
+    paths["gemma2_window_paged"], _ = serve_path(
+        K, "gemma2_window_paged: gemma2-27b (2 x 4608, window 4096, "
+           "softcaps, bf16), no SPLS, dense + cuda_paged_decode",
+        PagedServingEngine, params, gemma,
+        ServeConfig(compute_backend="dense",
+                    attn_backend="cuda_paged_decode", **gpaged),
+        gemma,
+        ServeConfig(compute_backend="dense",
+                    attn_backend="torch_paged_decode", **gpaged),
+        ("paged_flash_decode",), _chunk_stats(gemma.n_layers),
+        prompts=prompts, max_new=8, agree=None)
+    paths["gemma2_window_dense"], _ = serve_path(
+        K, "gemma2_window_dense: gemma2-27b, no SPLS, cuda_flash + "
+           "cuda_flash_decode", ServingEngine, params,
+        on(gemma, "cuda_flash"),
+        ServeConfig(attn_backend="cuda_flash_decode", **gdense),
+        on(gemma, "torch_flash"),
+        ServeConfig(attn_backend="torch_flash_decode", **gdense),
+        ("flash_attention", "flash_decode"),
+        per_layer("flash_decode", gemma.n_layers), prompts=prompts,
+        max_new=8, agree=None)
+    _bf16_logits("gemma2_window", params, gemma, prompts, paged=True)
+    del params
+    _free()
+    print(json.dumps({"phase_s": "gemma2_window",
+                      "s": time.perf_counter() - t0}))
+
+    # m. mamba2-370m at full width and depth (bf16 compute as published):
+    # the dense engine against a plain prefill + decode_step loop
+    t0 = time.perf_counter()
+    paths["mamba2_dense_engine"] = mamba2_loop(K, ServingEngine,
+                                               ServeConfig)
+    _free()
+    print(json.dumps({"phase_s": "mamba2_dense_engine",
+                      "s": time.perf_counter() - t0}))
+
+    # n. jamba-v0.1-52b at full width, one period of 8 layers (Mamba, MoE
+    # 16 experts top 2, attention at index 4), bf16 as published
+    t0 = time.perf_counter()
+    jamba = _full_width("jamba-v0.1-52b", n_layers=8)
+    params = _params(jamba)
+    prompts = _random_prompts(jamba.vocab_size, 4, 512)
+    jdense = dict(n_slots=4, max_len=536)
+    with _MoECalls() as moe:
+        paths["jamba_hybrid"], _ = serve_path(
+            K, "jamba_hybrid: jamba-v0.1-52b (8 x 4096, Mamba + MoE 16 "
+               "experts top 2 + attention, bf16), cuda_flash + "
+               "cuda_flash_decode", ServingEngine, params,
+            on(jamba, "cuda_flash"),
+            ServeConfig(attn_backend="cuda_flash_decode", **jdense),
+            on(jamba, "torch_flash"),
+            ServeConfig(attn_backend="torch_flash_decode", **jdense),
+            ("flash_attention", "flash_decode"), prompts=prompts,
+            agree=None)
+    print(json.dumps({"jamba_moe_calls_by_shape": moe.calls}))
+    _bf16_logits("jamba_hybrid", params, jamba, prompts[:2])
+    del params
+    _free()
+    print(json.dumps({"phase_s": "jamba_hybrid",
+                      "s": time.perf_counter() - t0}))
+
+    # o. the launcher on every architecture of the registry; its launches
+    # are reported, not counted as a path's: nothing holds its tokens
+    # against the plain backends
+    t0 = time.perf_counter()
+    launcher_sweep(K)
+    print(json.dumps({"phase_s": "launcher_sweep",
+                      "s": time.perf_counter() - t0}))
+    return paths
+
+
+def mamba2_loop(K, ServingEngine, ServeConfig) -> dict:
+    """Path (m): ``ServingEngine`` on mamba2-370m (4 prompts of 512 tokens,
+    16 new each, 4 slots), then the same requests through a plain loop of
+    ``prefill`` (one prompt at a time, spliced into a 4-row cache) and
+    batched ``decode_step``, as the engine orders them: the tokens must be
+    equal, and no kernel may launch (the model has no attention)."""
+    from repro_torch.models import decode_step, init_cache, prefill
+
+    cfg = _full_width("mamba2-370m")
+    params = _params(cfg)
+    prompts = _random_prompts(cfg.vocab_size, 4, 512)
+    scfg = ServeConfig(n_slots=4, max_len=536)
+    eng, reqs, wall, launches, peak = _serve_run(
+        K, ServingEngine, cfg, params, scfg, prompts, 16)
+    if any(launches.values()):
+        _fail(f"mamba2: kernels launched on an attention-free model: "
+              f"{launches}")
+    n_tok = sum(len(r.output) for r in reqs)
+
+    t0 = time.perf_counter()
+    cache = init_cache(cfg, 4, scfg.max_len)
+    outs = []
+    for s, p in enumerate(prompts):
+        toks = torch.tensor(p[None], device="cuda")
+        logits, one = prefill(cfg, params, toks, max_len=scfg.max_len)
+        for full, o in zip(cache, one):
+            for f_full, f_one in zip(full, o):
+                f_full[:, s:s + 1].copy_(f_one)
+        outs.append([int(logits[0, -1].argmax())])
+    pos = torch.full((4,), len(prompts[0]), dtype=torch.int32,
+                     device="cuda")
+    for _ in range(15):
+        tok = torch.tensor([[o[-1]] for o in outs], dtype=torch.int32,
+                           device="cuda")
+        logits, cache = decode_step(cfg, params, cache, tok, pos)
+        for o, t in zip(outs, logits[:, 0].argmax(-1).tolist()):
+            o.append(int(t))
+        pos += 1
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    got = [list(r.output) for r in reqs]
+    same = sum(a == b for x, y in zip(got, outs) for a, b in zip(x, y))
+    print(json.dumps({
+        "serve": "mamba2_dense_engine: mamba2-370m (48 x 1024, state 128, "
+                 "bf16 compute), ServingEngine (no kernel on this model)",
+        "requests": 4, "prompt_tokens": len(prompts[0]), "new_tokens": n_tok,
+        "wall_s": wall, "tok_per_s": n_tok / wall,
+        "peak_device_bytes": peak, "loop_wall_s": loop_s,
+        "tokens_vs_loop": f"{same}/{n_tok}"}))
+    if got != outs:
+        _fail("mamba2: the engine's tokens differ from the plain prefill + "
+              "decode_step loop's")
+    del params, cache
+    return launches
+
+
+def launcher_sweep(K) -> None:
+    """Path (o): ``repro_torch.launch.serve.main`` on the card for every id
+    of the registry, dense and with ``--paged --spls``: every run exits 0;
+    where the reference's launcher serves, every request is done, and
+    where it skips (embeddings input; ``--paged`` on Mamba archs), the same
+    skip.  Then ``python -m repro_torch.launch.serve`` itself once, in its
+    own process.  The sweep's summed launch counts are printed: no path
+    counts them, since nothing holds the sweep's tokens against the plain
+    backends."""
+    import contextlib
+    import io
+
+    from repro_torch.configs.registry import ARCH_IDS, get_config
+    from repro_torch.launch import serve as launch
+
+    total = {}
+    rows = []
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        for extra in ([], ["--paged", "--spls"]):
+            buf = io.StringIO()
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = launch.main(["--arch", arch, *extra])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = K.launch_counts()
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+            out = buf.getvalue()
+            skips = cfg.input_mode != "tokens" or (extra and cfg.has_mamba)
+            row = {"arch": arch, "args": " ".join(extra), "rc": rc,
+                   "wall_s": wall,
+                   "launches": {k: v for k, v in launches.items() if v}}
+            if skips:
+                row["skipped"] = out.strip()
+                ok = rc == 0 and "skipping" in out
+            else:
+                res = json.loads(out)
+                row.update(all_done=res["all_done"],
+                           retired=res["retired"], pool=res.get("pool"))
+                ok = rc == 0 and res["all_done"] and res["retired"] == 8
+            rows.append(row)
+            if not ok:
+                _fail(f"launch.serve --arch {arch} {' '.join(extra)}: "
+                      f"rc {rc}, output {out[-400:]!r}")
+    src = str(Path(__file__).resolve().parent / "src")
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           "qwen3-0.6b", "--paged", "--spls"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                          env={**os.environ, "PYTHONPATH": src})
+    sub = {"command": "python -m repro_torch.launch.serve --arch qwen3-0.6b "
+                      "--paged --spls", "rc": proc.returncode,
+           "wall_s": time.perf_counter() - t0}
+    if proc.returncode != 0 or not json.loads(proc.stdout)["all_done"]:
+        _fail(f"{sub['command']}: rc {proc.returncode}, "
+              f"{proc.stdout[-400:]!r} {proc.stderr[-400:]!r}")
+    print(json.dumps({"launcher_sweep": rows, "subprocess": sub,
+                      "launches_not_counted": total}))
 
 
 # ---------------------------------------------------------------------------
@@ -1635,6 +2204,7 @@ def main() -> int:
     paths = serve(K)
     paths["noncausal_exact_forward"] = exact_forward(K)
     serve_bf16(K)
+    paths.update(families(K))
     for row in rows:
         row["ptxas"] = ptxas[Path(row["source"]).stem]
     for row in rows:

@@ -15,5 +15,8 @@ without page pruning, with a finite vote horizon -- and whole-prompt
 prefill, and the dense fixed-slot engine (:mod:`repro_torch.serving`);
 ``python -m repro_torch.serve_batch`` is the reference's serving example,
 and :mod:`repro_torch.observability` its telemetry and
-``BENCH_serving.json`` report.
+``BENCH_serving.json`` report.  :mod:`repro_torch.configs.registry` holds
+the reference's ten architectures -- dense GQA, MoE, Mamba2, the hybrid,
+the embeddings input -- and ``python -m repro_torch.launch.serve --arch
+<id>`` serves any of them.
 """

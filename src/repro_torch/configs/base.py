@@ -16,7 +16,7 @@ from typing import Optional, Tuple
 
 from repro_torch.core.spls import SPLSConfig
 
-__all__ = ["BlockCfg", "ArchConfig"]
+__all__ = ["BlockCfg", "ArchConfig", "ShapeCfg", "LM_SHAPES"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,6 +27,28 @@ class BlockCfg:
     window: Optional[int] = None   # sliding-window size (None = global)
     use_moe: bool = False
     has_ffn: bool = True           # mamba2-pure blocks have no FFN
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCfg:
+    """One input-shape cell from the assignment table."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                       # "train" | "prefill" | "decode"
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+LM_SHAPES: Tuple[ShapeCfg, ...] = (
+    ShapeCfg("train_4k", 4096, 256, "train"),
+    ShapeCfg("prefill_32k", 32768, 32, "prefill"),
+    ShapeCfg("decode_32k", 32768, 128, "decode"),
+    ShapeCfg("long_500k", 524288, 1, "decode"),
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,8 +107,8 @@ class ArchConfig:
     compute_backend: str = "dense"
     # training
     remat: bool = True
-    # shape support: names of the reference's shape cells this arch can
-    # run (long_500k only for sub-quadratic archs: SSM / hybrid / SWA)
+    # shape support: names from LM_SHAPES this arch can run; long_500k only
+    # for sub-quadratic archs (SSM / hybrid / SWA)
     supported_shapes: Tuple[str, ...] = ("train_4k", "prefill_32k", "decode_32k")
     # per-shape microbatch override for gradient accumulation {shape: mb}
     microbatch: Optional[dict] = None

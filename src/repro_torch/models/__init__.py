@@ -8,17 +8,24 @@ from .common import apply_rope, rms_norm, rope_freqs, softcap
 from .attention import (KVCache, attention_decode, attention_forward,
                         init_attention, init_kv_cache, output_proj,
                         project_kv, project_qkv)
-from .moe import ffn_forward, init_mlp, mlp_forward
-from .blocks import block_decode, block_forward
+from .moe import (ffn_forward, init_ffn, init_mlp, init_moe, mlp_forward,
+                  moe_aux_loss, moe_forward)
+from .mamba import (MambaCache, init_mamba, init_mamba_cache, mamba_decode,
+                    mamba_forward, ssd_chunked)
+from .blocks import (block_decode, block_forward, init_block,
+                     init_block_cache)
 from .model import (decode_step, embed_inputs, forward, head_logits,
-                    init_block, init_cache, init_params, prefill)
+                    init_cache, init_params, prefill)
 from .attn_backend import get_backend, resolve_backend, resolve_paged_backend
 
 __all__ = ["apply_rope", "rms_norm", "rope_freqs", "softcap", "KVCache",
            "attention_decode", "attention_forward", "init_attention",
            "init_kv_cache", "output_proj", "project_kv", "project_qkv",
-           "ffn_forward", "init_mlp", "mlp_forward", "block_decode",
-           "block_forward", "decode_step", "embed_inputs", "forward",
+           "ffn_forward", "init_ffn", "init_mlp", "init_moe", "mlp_forward",
+           "moe_aux_loss", "moe_forward", "MambaCache", "init_mamba",
+           "init_mamba_cache", "mamba_decode", "mamba_forward", "ssd_chunked",
+           "block_decode", "block_forward", "init_block_cache",
+           "decode_step", "embed_inputs", "forward",
            "head_logits", "init_block", "init_cache", "init_params",
            "prefill", "get_backend", "resolve_backend",
            "resolve_paged_backend"]

@@ -59,11 +59,10 @@ def apply_rope(x: torch.Tensor, sin: torch.Tensor,
 
 def dense_init(gen: torch.Generator, shape: Tuple[int, ...], dtype,
                device, fan_in: Optional[int] = None) -> torch.Tensor:
-    """Truncated normal in [-2, 2] scaled by 1/sqrt(fan_in).  Drawn on the
-    CPU from ``gen`` (so a seed gives the same weights on every device)
-    and moved to ``device``."""
+    """Truncated normal in [-2, 2] scaled by 1/sqrt(fan_in).  Drawn in
+    float32 on ``gen``'s device and moved to ``device``."""
     fan_in = fan_in or shape[0]
-    t = torch.empty(shape, dtype=torch.float32)
+    t = torch.empty(shape, dtype=torch.float32, device=gen.device)
     torch.nn.init.trunc_normal_(t, mean=0.0, std=1.0, a=-2.0, b=2.0,
                                 generator=gen)
     return (t * fan_in ** -0.5).to(device=device, dtype=dtype)

@@ -9,6 +9,11 @@ weights from the reference package is a plain copy
 traverses the stack with ``lax.scan``, the port runs a Python loop over
 periods.  The paged serving path runs its own loop around the paged cache
 and uses :func:`embed_inputs` / :func:`head_logits` as seams.
+
+Modality frontends (the audio / vlm archs) are stubs, as in the
+reference: with ``cfg.input_mode == "embeddings"`` the model consumes
+precomputed frame / patch embeddings of shape (B, L, D) instead of token
+ids.
 """
 
 from __future__ import annotations
@@ -19,10 +24,9 @@ import torch
 
 from repro_torch.device import resolve_device
 
-from .attention import KVCache, init_attention, init_kv_cache
-from .blocks import block_decode, block_forward
+from .blocks import (block_decode, block_forward, init_block,
+                     init_block_cache)
 from .common import dense_init, dtype_of, rms_norm, softcap
-from .moe import init_ffn
 
 __all__ = ["init_block", "init_params", "embed_inputs", "head_logits",
            "period_params", "forward", "init_cache", "decode_step",
@@ -31,41 +35,48 @@ __all__ = ["init_block", "init_params", "embed_inputs", "head_logits",
 Params = Dict[str, Any]
 
 
-def init_block(cfg, blk, gen: torch.Generator, dtype, device) -> dict:
-    if blk.mixer != "attn":
-        raise NotImplementedError(
-            "Mamba blocks are not ported yet (ROADMAP.md, Queue A item 10)")
-    zeros = lambda: torch.zeros((cfg.d_model,), dtype=dtype, device=device)
-    p = {"ln1": zeros(), "attn": init_attention(cfg, gen, dtype, device)}
-    if blk.has_ffn:
-        p["ln2"] = zeros()
-        p["ffn"] = init_ffn(cfg, blk.use_moe, gen, dtype, device)
-    if cfg.use_post_norm:
-        p["post_ln1"] = zeros()
-        if blk.has_ffn:
-            p["post_ln2"] = zeros()
-    return p
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
-def _stack(trees):
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
+def _stacked(make, n: int):
+    """``n`` trees from ``make()``, stacked leaf by leaf on a new leading
+    axis; each tree is copied into place as it is drawn, so at most one
+    unstacked tree exists beside the stack."""
+    def alloc(t):
+        if isinstance(t, dict):
+            return {k: alloc(v) for k, v in t.items()}
+        return t.new_empty((n,) + tuple(t.shape))
+
+    tree = make()
+    out = alloc(tree)
+    for i in range(n):
+        if i:
+            tree = make()
+        for dst, src in zip(_leaves(out), _leaves(tree)):
+            dst[i].copy_(src)
+        tree = None
+    return out
 
 
 def init_params(cfg, seed: int = 0,
                 device: Optional[str] = None) -> Params:
-    """Random parameters from ``seed`` (a ``torch.Generator`` on the CPU,
-    so a seed gives the same weights on every device), placed on
-    ``device`` (default: the card)."""
+    """Random parameters from ``seed``, drawn by a ``torch.Generator`` on
+    ``device`` (default: the card), so a seed gives the same weights on
+    every device of one type; a full-width model of billions of parameters
+    never passes through the host."""
     dev = resolve_device(device)
     dtype = dtype_of(cfg.param_dtype)
-    gen = torch.Generator().manual_seed(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     p: Params = {"embed": dense_init(gen, (cfg.vocab_size, cfg.d_model),
                                      dtype, dev, fan_in=cfg.d_model)}
     p["periods"] = tuple(
-        _stack([init_block(cfg, blk, gen, dtype, dev)
-                for _ in range(cfg.n_periods)])
+        _stacked(lambda: init_block(cfg, blk, gen, dtype, dev),
+                 cfg.n_periods)
         for blk in cfg.period)
     p["final_norm"] = torch.zeros((cfg.d_model,), dtype=dtype, device=dev)
     if not cfg.tied_embeddings:
@@ -75,14 +86,17 @@ def init_params(cfg, seed: int = 0,
 
 
 def embed_inputs(cfg, params: Params, inputs: torch.Tensor) -> torch.Tensor:
-    """Token frontend: (B, L) int -> (B, L, D)."""
-    if cfg.input_mode != "tokens":
-        raise NotImplementedError(
-            "the embeddings input stub is not ported yet (ROADMAP.md, "
-            "Queue A item 10)")
-    x = params["embed"][inputs.long()].to(dtype_of(cfg.compute_dtype))
+    """Token / embedding frontend: (B, L) int or (B, L, D) -> (B, L, D) in
+    the compute dtype (scaled by sqrt(d_model), rounded to that dtype, when
+    ``cfg.scale_embedding``)."""
+    dtype = dtype_of(cfg.compute_dtype)
+    if cfg.input_mode == "tokens":
+        x = params["embed"][inputs.long()].to(dtype)
+    else:  # modality stub: precomputed embeddings
+        x = inputs.to(dtype)
     if cfg.scale_embedding:
-        x = x * cfg.d_model ** 0.5
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dtype,
+                             device=x.device)
     return x
 
 
@@ -105,7 +119,8 @@ def period_params(params: Params, pi: int, dtype) -> tuple:
 
 
 def forward(cfg, params: Params, inputs: torch.Tensor) -> torch.Tensor:
-    """inputs: (B, L) int tokens -> logits (B, L, V).  With SPLS on, each
+    """inputs: (B, L) int tokens or (B, L, D) embeddings -> logits (B, L,
+    V).  With SPLS on, each
     block runs under its exact-top-k plan (``plan_mode="auto"``; the
     row-block plan from ``blocks._SPLS_CHUNK_THRESHOLD`` tokens on)."""
     dtype = dtype_of(cfg.compute_dtype)
@@ -118,41 +133,43 @@ def forward(cfg, params: Params, inputs: torch.Tensor) -> torch.Tensor:
 
 def init_cache(cfg, batch: int, max_len: int,
                device: Optional[str] = None) -> tuple:
-    """One :class:`~repro_torch.models.attention.KVCache` per period block,
-    stacked over periods: ``k / v (n_periods, B, KV, max_len, Dh)`` zeros
-    in the compute dtype, on ``device`` (default: the card)."""
+    """One cache per period block, stacked over periods, zeros on
+    ``device`` (default: the card): a
+    :class:`~repro_torch.models.attention.KVCache` ``k / v (n_periods, B,
+    KV, max_len, Dh)`` in the compute dtype for an attention block, a
+    :class:`~repro_torch.models.mamba.MambaCache` (``conv (n_periods, B,
+    channels, W)`` in the compute dtype, ``ssd (n_periods, B, H, P, N)``
+    float32) for a Mamba block."""
     dev = resolve_device(device)
     dtype = dtype_of(cfg.compute_dtype)
-    if any(blk.mixer != "attn" for blk in cfg.period):
-        raise NotImplementedError(
-            "Mamba blocks are not ported yet (ROADMAP.md, Queue A item 10)")
-    return tuple(init_kv_cache(cfg, (cfg.n_periods, batch), max_len, dtype,
-                               dev) for _ in cfg.period)
+    return tuple(init_block_cache(cfg, blk, (cfg.n_periods, batch), max_len,
+                                  dtype, dev) for blk in cfg.period)
 
 
 def decode_step(cfg, params: Params, cache: tuple, tokens: torch.Tensor,
                 pos: torch.Tensor):
-    """One decode step.  tokens: (B, 1) int; pos: (B,) int32 write index.
+    """One decode step.  tokens: (B, 1) int or (B, 1, D); pos: (B,) int32
+    write index (attention blocks).
 
-    Every layer writes the token's K/V at ``pos`` into ``cache`` **in
-    place** (the reference threads a new cache through its scan).  Returns
-    ``(logits (B, 1, V), cache)``.
+    Every layer updates its slice of ``cache`` **in place** (the reference
+    threads a new cache through its scan).  Returns ``(logits (B, 1, V),
+    cache)``.
     """
     dtype = dtype_of(cfg.compute_dtype)
     x = embed_inputs(cfg, params, tokens)
     for pi in range(cfg.n_periods):
         for blk, bp, c in zip(cfg.period, period_params(params, pi, dtype),
                               cache):
-            x, _ = block_decode(cfg, blk, bp, x, KVCache(c.k[pi], c.v[pi]),
-                                pos)
+            x, _ = block_decode(cfg, blk, bp, x,
+                                type(c)(*(f[pi] for f in c)), pos)
     return head_logits(cfg, params, x), cache
 
 
 def prefill(cfg, params: Params, inputs: torch.Tensor,
             max_len: Optional[int] = None, plan_mode: str = "auto"):
-    """Process a whole prompt: inputs (B, L) -> ``(logits (B, L, V),
-    cache)`` with the cache as :func:`init_cache` lays it out, right-padded
-    to ``max_len`` (default L).
+    """Process a whole prompt: inputs (B, L) int or (B, L, D) ->
+    ``(logits (B, L, V), cache)`` with the cache as :func:`init_cache` lays
+    it out, right-padded to ``max_len`` (default L).
 
     With SPLS on this is the paper's scenario: each block's plan is
     predicted before its QKV generation and the prompt runs sparsely
@@ -171,7 +188,8 @@ def prefill(cfg, params: Params, inputs: torch.Tensor,
                                  plan_mode=plan_mode)
             caches.append(c)
         per_period.append(caches)
-    cache = tuple(KVCache(k=torch.stack([cs[bi].k for cs in per_period]),
-                          v=torch.stack([cs[bi].v for cs in per_period]))
-                  for bi in range(len(cfg.period)))
+    cache = tuple(
+        type(c0)(*(torch.stack([cs[bi][f] for cs in per_period])
+                   for f in range(len(c0))))
+        for bi, c0 in enumerate(per_period[0]))
     return head_logits(cfg, params, x), cache

@@ -219,10 +219,12 @@ class ServingEngine:
             logits, cache1 = prefill(self._cfg_fwd, self.params, toks,
                                      max_len=self.scfg.max_len,
                                      plan_mode=self._plan_mode)
-            # splice this row's prefilled cache into slot s, in place
+            # splice this row's prefilled cache into slot s, in place,
+            # field by field of whatever cache each block keeps (K / V of
+            # an attention block, conv window / SSM state of a Mamba one)
             for full, one in zip(self.cache, cache1):
-                full.k[:, s:s + 1].copy_(one.k)
-                full.v[:, s:s + 1].copy_(one.v)
+                for f_full, f_one in zip(full, one):
+                    f_full[:, s:s + 1].copy_(f_one)
             nxt = int(torch.argmax(logits[0, -1]))
             req.output.append(nxt)
             self.telemetry.span_end("full_prefill", rid=req.rid)

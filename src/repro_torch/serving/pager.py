@@ -131,7 +131,10 @@ def init_paged_cache(cfg, n_pages: int, page_size: int,
 
     def one_block(blk):
         if blk.mixer != "attn":
-            raise NotImplementedError("paged cache covers attention blocks")
+            raise NotImplementedError(
+                "the paged cache covers attention blocks only: the paged "
+                "engine is attention-only, as the reference's is (SSM "
+                "state is O(1) per slot and is not paged)")
         return PagedKVCache(
             k_pages=torch.zeros(shape, dtype=dtype, device=device),
             v_pages=torch.zeros(shape, dtype=dtype, device=device))

@@ -3,7 +3,9 @@
 The port keeps the reference's tree and layouts, so bridging is a copy:
 nested dicts and tuples of numpy arrays (the reference's ``init_params``
 output after ``np.asarray`` on every leaf) become the same nesting of
-tensors on ``device``.
+tensors on ``device``.  A bfloat16 leaf (numpy has no bfloat16 of its
+own: JAX hands out ``ml_dtypes.bfloat16`` arrays, which ``torch.from_numpy``
+refuses) crosses as its 16-bit pattern, so it arrives bit for bit.
 """
 
 from __future__ import annotations
@@ -28,6 +30,12 @@ def params_from_jax(tree, device: Optional[str] = None):
             return {k: conv(v) for k, v in t.items()}
         if isinstance(t, (tuple, list)):
             return type(t)(conv(v) for v in t)
-        return torch.from_numpy(np.array(t, copy=True)).to(dev)
+        return _tensor(np.array(t, copy=True)).to(dev)
 
     return conv(tree)
+
+
+def _tensor(a: np.ndarray) -> torch.Tensor:
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)

@@ -16,13 +16,15 @@ from repro.configs.base import BlockCfg as JBlockCfg
 from repro.core.spls import SPLSConfig as JSPLSConfig
 from repro.models import init_params as jax_init_params
 from repro.serving import (PagedServingEngine as JEngine, Request as JRequest,
-                           ServeConfig as JServe)
+                           ServeConfig as JServe,
+                           ServingEngine as JDenseEngine)
 from repro_torch.configs.base import ArchConfig as TArchConfig
 from repro_torch.configs.base import BlockCfg as TBlockCfg
 from repro_torch.core.spls import SPLSConfig as TSPLSConfig
 from repro_torch.serve_batch import demo_config
 from repro_torch.serving import (PagedServingEngine as TEngine,
-                                 Request as TRequest, ServeConfig as TServe)
+                                 Request as TRequest, ServeConfig as TServe,
+                                 ServingEngine as TDenseEngine)
 from repro_torch.weights import params_from_jax
 
 jax.config.update("jax_platform_name", "cpu")
@@ -59,11 +61,28 @@ def cfg_pair(kind: str = "mha", spls: dict = None, **kw):
 _PARAMS = {}
 
 
-def params_pair(jc, seed: int = 0):
-    """(reference params, the same weights as port tensors on the CPU)."""
-    key = (jc, seed)
+def arch_pair(arch_id: str, spls: dict = None, **kw):
+    """(reference, port) smoke configs of a registry architecture, remat
+    off, with ``kw`` replaced in both and SPLS turned on with ``spls``'s
+    fields."""
+    from repro.configs.registry import get_config as jget
+    from repro_torch.configs.registry import get_config as tget
+    jc = dataclasses.replace(jget(arch_id).smoke(), remat=False, **kw)
+    tc = dataclasses.replace(tget(arch_id).smoke(), remat=False, **kw)
+    if spls is not None:
+        jc = dataclasses.replace(jc, spls=JSPLSConfig(**spls))
+        tc = dataclasses.replace(tc, spls=TSPLSConfig(**spls))
+    return jc, tc
+
+
+def params_pair(jc, seed: int = 0, jit: bool = False):
+    """(reference params, the same weights as port tensors on the CPU).
+    ``jit`` draws the reference's weights under ``jax.jit``: one compile in
+    place of thousands of eager ops, for the registry's smoke forms."""
+    key = (repr(jc), seed, jit)  # a config's microbatch dict is unhashable
     if key not in _PARAMS:
-        jp = jax_init_params(jc, jax.random.PRNGKey(seed))
+        init = lambda k: jax_init_params(jc, k)
+        jp = (jax.jit(init) if jit else init)(jax.random.PRNGKey(seed))
         tp = params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
         _PARAMS[key] = (jp, tp)
     return _PARAMS[key]
@@ -121,3 +140,34 @@ def serve_both(jc, tc, jp, tp, prompts, kw, max_new=4):
         assert all(r.done for r in reqs)
         out.append((eng, [r.output for r in reqs]))
     return out
+
+
+# the SPLS knobs of the serving launcher (``launch.serve --spls``)
+LAUNCH_SPLS = dict(enabled=True, k_ratio=0.25, s_threshold=0.6,
+                   f_threshold=2, window=4, causal=True)
+
+
+def family_prompts(vocab, lengths=(20, 13, 20)):
+    r = np.random.default_rng(11)
+    return [r.integers(0, vocab, L).astype(np.int32) for L in lengths]
+
+
+def dense_engines_agree(arch_id, spls):
+    """Three requests through two slots: admission into a freed slot,
+    ragged prompts, batched decode with an inactive row."""
+    jc, tc = arch_pair(arch_id, spls=LAUNCH_SPLS if spls else None)
+    jp, tp = params_pair(jc, jit=True)
+    kw = dict(n_slots=2, max_len=32, attn_backend="pallas_flash")
+    jeng = JDenseEngine(jc, jp, JServe(**kw))
+    teng = TDenseEngine(tc, tp, TServe(**kw), device="cpu")
+    prompts = family_prompts(jc.vocab_size)
+    jreqs = [JRequest(rid=i, prompt=jnp.asarray(p), max_new_tokens=4 + i)
+             for i, p in enumerate(prompts)]
+    treqs = [TRequest(rid=i, prompt=p, max_new_tokens=4 + i)
+             for i, p in enumerate(prompts)]
+    for eng, reqs in ((jeng, jreqs), (teng, treqs)):
+        for q in reqs:
+            eng.submit(q)
+        done = eng.run_until_drained(max_ticks=200)
+        assert len(done) == len(reqs) and all(q.done for q in reqs)
+    assert [q.output for q in treqs] == [q.output for q in jreqs]
