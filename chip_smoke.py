@@ -94,6 +94,23 @@ and nothing falls back to the CPU):
    paths report the mismatches and hold the logits to 1 bf16 ulp of max
    |plain| after prefill and 4 ulps after a decode step, with a control
    (the windows dropped) reported beside each tolerance.
+7. Training (no kernel has a backward, so training runs the reference's
+   differentiable routes and no kernel may launch while it trains): (p)
+   qwen3-0.6b at full width and depth (float32 params, bf16 compute,
+   remat, as published) through ``Trainer`` on the synthetic ``lm`` task,
+   4096 tokens, ``n_micro`` 8, global batch 8 (cut from 256): every
+   gradient leaf finite and nonzero, step 0's loss within 0.5 of ln V,
+   4 steps with a checkpoint at step 2, and a fresh ``Trainer`` restored
+   from it held against the uninterrupted run; step time, tokens/s, model
+   FLOPs per step and per second, peak memory; then the trained weights
+   through ``make_prefill_step`` / ``make_serve_step`` on B4 / B5 against
+   the plain backends (2 prompts of 512 from the pipeline, 8 decode
+   steps; 1 / 4 bf16 ulps, an oldest-keys-dropped control beside each);
+   (q) ``make_loss_grad`` on the smoke forms of qwen3-0.6b and olmoe, with
+   and without SPLS, card against CPU, remat on against off, and the
+   kernel wrappers' refusal of a gradient; (r) ``repro_torch.launch.train``
+   on every architecture of the registry, with ``--spls``, and once as
+   ``python -m``.
 
 The last lines are the ``{"kernels": [...]}`` line, the card's
 ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
@@ -1514,10 +1531,12 @@ def _logit_err(got, ref) -> float:
 
 
 def _hold_logits(path: str, what: str, got, ref, n_ulps: int, row: dict,
-                 control=None) -> None:
+                 control=None, control_name="control_window_dropped"
+                 ) -> None:
     """Kernel route ``got`` against the plain route ``ref``: max |err|
     within ``n_ulps`` bf16 ulps of max |plain|.  A ``control`` (the kernel
-    route with the window dropped) is reported beside the tolerance."""
+    route with a fault: by default the window dropped) is reported beside
+    the tolerance as ``control_name``."""
     err = _logit_err(got, ref)
     tol = n_ulps * float(_bf16_ulp(ref.abs().max()))
     agree = int((got[:, -1].float().argmax(-1)
@@ -1527,7 +1546,7 @@ def _hold_logits(path: str, what: str, got, ref, n_ulps: int, row: dict,
                  "last_argmax_agree": f"{agree}/{got.shape[0]}"}
     if control is not None:
         c_err = _logit_err(control, ref)
-        row[what]["control_window_dropped"] = {
+        row[what][control_name] = {
             "max_abs_err": c_err, "over_tolerance": c_err > tol}
     if not all(torch.isfinite(g).all() for g in got) or not err <= tol:
         _fail(f"{path}: bf16 {what} logits, kernels vs plain: max |err| "
@@ -1929,6 +1948,398 @@ def launcher_sweep(K) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 7: training, paths (p)-(r)
+# ---------------------------------------------------------------------------
+
+def _train_flops(cfg, tokens: int, L: int) -> float:
+    """Model FLOPs of one training step, counted from the config: 6 x the
+    parameters that enter a product x tokens (a tied embedding counts once,
+    as the head; the lookup and the norms are no product), plus the
+    attention products, 12 x layers x heads x Dh x L per token (all L x L
+    scores: ``torch_dense`` computes every one).  Remat's extra forward
+    is not counted."""
+    D, V = cfg.d_model, cfg.vocab_size
+    n_mm = cfg.param_count() - (0 if cfg.tied_embeddings else V * D) \
+        - (2 * D * cfg.n_periods * len(cfg.period) + D)
+    attn = 12 * cfg.n_layers * cfg.n_heads * cfg.resolved_head_dim * L
+    return 6.0 * n_mm * tokens + float(attn) * tokens
+
+
+def _grad_check(cfg, params, batch, n_micro: int) -> dict:
+    """``make_loss_grad`` once: every gradient leaf finite with a norm
+    above 0 (a leaf without a gradient would show 0)."""
+    from repro_torch.launch.steps import make_loss_grad
+    from repro_torch.tree import leaf_id, leaves_with_path
+
+    t0 = time.perf_counter()
+    grads, metrics = make_loss_grad(cfg, n_micro)(params, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    norms = {leaf_id(p): float(g.float().norm())
+             for p, g in leaves_with_path(grads)}
+    bad = [k for k, v in norms.items() if not (math.isfinite(v) and v > 0)]
+    if bad:
+        _fail(f"qwen3_train: gradient leaves not finite or zero: {bad}")
+    return {"loss": float(metrics["loss"]), "wall_s": wall,
+            "grad_leaves": len(norms), "min_grad_norm": min(norms.values()),
+            "max_grad_norm": max(norms.values())}
+
+
+def _serve_trained(K, cfg, params, prompts, n_new: int) -> dict:
+    """Path (p)'s tail: the trained weights through ``make_prefill_step``
+    / ``make_serve_step`` on the kernels (``"pallas_flash"`` /
+    ``"pallas_flash_decode"``: B4, B5) against the plain backends
+    (``torch_flash`` / ``torch_flash_decode``), each route from its own
+    cache on the plain route's greedy tokens: prefill logits within 1 bf16
+    ulp of max |plain|, each decode step within 4.  The control is the
+    kernel route with a window of L - 1 (the last prompt row loses its
+    oldest key, a decode step its oldest pos - L + 2 keys)."""
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+
+    B, L = prompts.shape
+    ctrl = dataclasses.replace(cfg, period=tuple(
+        dataclasses.replace(b, window=L - 1) for b in cfg.period))
+    routes = {"plain": (cfg, "torch_flash", "torch_flash_decode"),
+              "kernel": (cfg, "pallas_flash", "pallas_flash_decode"),
+              "control": (ctrl, "pallas_flash", "pallas_flash_decode")}
+    out, toks, launches = {}, [], {}
+    for name, (c, fwd, dec) in routes.items():
+        prefill_step = make_prefill_step(c, fwd)
+        serve_step = make_serve_step(c, dec)
+        if name == "kernel":
+            torch.cuda.synchronize()
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+        logits, cache = prefill_step(params, prompts, max_len=L + n_new)
+        steps = [logits]
+        pos = torch.full((B,), L, dtype=torch.int32, device=prompts.device)
+        for s in range(n_new):
+            if name == "plain":
+                toks.append(steps[-1][:, -1].float().argmax(-1)[:, None]
+                            .to(torch.int32))
+            lg, cache = serve_step(params, cache, toks[s], pos)
+            steps.append(lg)
+            pos = pos + 1
+        if name == "kernel":
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = K.launch_counts()
+        out[name] = steps
+        del cache
+    row = {"serve_trained": "qwen3-0.6b trained weights, make_prefill_step"
+                            "('pallas_flash') + make_serve_step("
+                            "'pallas_flash_decode') vs torch_flash / "
+                            "torch_flash_decode",
+           "batch": [B, L], "decode_steps": n_new, "kernel_wall_s": wall,
+           "launches": {k: v for k, v in launches.items() if v}}
+    ctrl_name = "control_oldest_keys_dropped"
+    _hold_logits("qwen3_train", "prefill", out["kernel"][0],
+                 out["plain"][0], 1, row, out["control"][0], ctrl_name)
+    for s in range(1, n_new + 1):
+        _hold_logits("qwen3_train", f"decode_step_{s}", out["kernel"][s],
+                     out["plain"][s], 4, row, out["control"][s], ctrl_name)
+    print(json.dumps(row))
+    for k in ("flash_attention", "flash_decode"):
+        if not launches.get(k):
+            _fail(f"qwen3_train: the serve tail launched no {k}")
+    return launches
+
+
+def qwen3_train(K) -> dict:
+    """Path (p), the slice's main path: qwen3-0.6b at full width and depth
+    (float32 params, bf16 compute, remat on, as published) trained through
+    ``Trainer`` on the synthetic ``lm`` task at ``train_4k``'s 4096 tokens,
+    ``n_micro`` 8 (the config's microbatch), global batch 8 (cut from 256):
+    4 steps with a checkpoint at step 2; a fresh ``Trainer`` restored from
+    step 2 runs steps 3-4, held against the uninterrupted run.  No kernel
+    may launch while training.  Then the trained weights serve through B4
+    / B5 (:func:`_serve_trained`)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig, synthetic_batch
+    from repro_torch.models import init_params
+    from repro_torch.optim.schedules import warmup_cosine
+    from repro_torch.runtime import Trainer, TrainerConfig
+    from repro_torch.tree import leaves
+
+    cfg = get_config("qwen3-0.6b")
+    n_micro = cfg.microbatch["train_4k"]
+    L = 4096
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=L + 1,
+                      global_batch=8, seed=SEED)
+    tokens = data.global_batch * L
+    flops = _train_flops(cfg, tokens, L)
+    tcfg = dict(total_steps=4, log_every=1, n_micro=n_micro, seed=SEED)
+    row = {"train": "qwen3_train: qwen3-0.6b (28 x 1024, 16 heads, 8 KV "
+                    "heads, Dh 128, vocab 151936, tied; float32 params, bf16 "
+                    "compute, remat), Trainer, lm task",
+           "seq_len": L, "global_batch": data.global_batch,
+           "n_micro": n_micro, "tokens_per_step": tokens,
+           "model_flops_per_step": flops, "params": cfg.param_count()}
+
+    # every gradient leaf at step 0, on the weights the trainer starts from
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    params = init_params(cfg, seed=SEED)
+    row["grad_check"] = _grad_check(cfg, params, synthetic_batch(data, 0),
+                                    n_micro)
+    del params
+    _free()
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    try:
+        a = Trainer(cfg, TrainerConfig(ckpt_dir=str(tmp / "a"),
+                                       ckpt_every=2, **tcfg), data)
+        t0 = time.perf_counter()
+        out_a = a.run()
+        row["run_wall_s"] = time.perf_counter() - t0
+        row["disk_free_bytes"] = shutil.disk_usage(tmp).free
+        row["steps"] = [{k: m[k] for k in ("step", "loss", "grad_norm",
+                                           "lr", "step_time_s")}
+                        for m in out_a["metrics"]]
+        # the steps' card time: steps 2-4 (step 1 warms the process up)
+        dt = statistics.median(m["step_time_s"]
+                               for m in out_a["metrics"][1:])
+        row.update(step_time_s=dt, tokens_per_s=tokens / dt,
+                   model_flops_per_s=flops / dt,
+                   peak_device_bytes=torch.cuda.max_memory_allocated())
+        loss0 = out_a["metrics"][0]["loss"]
+        if abs(loss0 - math.log(cfg.vocab_size)) > 0.5:
+            _fail(f"qwen3_train: step 0 loss {loss0} is not within 0.5 of "
+                  f"ln V = {math.log(cfg.vocab_size)}")
+
+        # a fresh trainer from the step-2 checkpoint runs steps 3-4
+        (tmp / "b").mkdir()
+        shutil.copytree(tmp / "a" / "step_000000002",
+                        tmp / "b" / "step_000000002")
+        shutil.rmtree(tmp / "a")
+        b = Trainer(cfg, TrainerConfig(ckpt_dir=str(tmp / "b"),
+                                       ckpt_every=4, **tcfg), data)
+        b.restore_or_init()
+        if b.step != 2 or int(b.opt_state.count) != 2:
+            _fail(f"qwen3_train: restored step {b.step}, count "
+                  f"{int(b.opt_state.count)}, expected 2")
+        out_b = b.run()
+        launches = K.launch_counts()
+        if any(launches.values()):
+            _fail(f"qwen3_train: kernels launched while training: "
+                  f"{launches}")
+        sched = warmup_cosine(b.tcfg.peak_lr, b.tcfg.warmup_steps, 4)
+        p_tol = 2 * (sched(2) + sched(3))
+        diffs = [(x.float() - y.float()).abs() for x, y in
+                 zip(leaves(a.params), leaves(b.params))]
+        p_err = max(float(d.max()) for d in diffs)
+        changed = sum(int((d > 0).sum()) for d in diffs)
+        del diffs
+        la = [m["loss"] for m in out_a["metrics"][2:]]
+        lb = [m["loss"] for m in out_b["metrics"]]
+        row["restored"] = {
+            "losses_uninterrupted": la, "losses_restored": lb,
+            "loss_tolerance": "step 3: 1e-6 x loss (the same forward on "
+                              "the same restored bits); step 4: 1e-3 x loss",
+            "params_max_abs_err": p_err,
+            "params_elements_differing": changed,
+            "params_tolerance": p_tol,
+            "params_tolerance_rule": "2 x (lr at counts 2 and 3): Adam "
+                                     "moves an element by at most lr a "
+                                     "step"}
+        if not (abs(la[0] - lb[0]) <= 1e-6 * abs(la[0])
+                and abs(la[1] - lb[1]) <= 1e-3 * abs(la[1])
+                and p_err <= p_tol):
+            _fail(f"qwen3_train: the restored run differs from the "
+                  f"uninterrupted one: {row['restored']}")
+        del b
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    row["device"] = _smi()
+    print(json.dumps(row))
+    _free()
+
+    prompts = synthetic_batch(dataclasses.replace(
+        data, seq_len=513, global_batch=2, seed=SEED + 1), 0)["inputs"]
+    launches = _serve_trained(K, cfg, a.params, prompts, 8)
+    del a
+    _free()
+    return launches
+
+
+class _Plans:
+    """While on, ``blocks.build_block_plan`` records each plan it builds
+    into ``record``; with ``feed``, it returns the next plan of ``feed``
+    (moved to the input's device) instead of building one."""
+
+    def __init__(self, record: list, feed=None):
+        from repro_torch.models import blocks
+        self.blocks, self.record, self.feed = blocks, record, feed
+
+    def __enter__(self):
+        self.orig = build = self.blocks.build_block_plan
+
+        def plan(cfg, p, xn):
+            if self.feed is None:
+                got = build(cfg, p, xn)
+            else:
+                got = self.feed.pop(0)
+                got = type(got)(*(f.to(xn.device) for f in got))
+            self.record.append(got)
+            return got
+
+        self.blocks.build_block_plan = plan
+        return self
+
+    def __exit__(self, *exc):
+        self.blocks.build_block_plan = self.orig
+
+
+def _rel_err(grads, ref) -> float:
+    """Max over leaves of max |grads - ref| / max |ref| (on the host)."""
+    from repro_torch.tree import leaves
+
+    out = 0.0
+    for a, r in zip(leaves(grads), leaves(ref)):
+        a, r = a.float().cpu(), r.float().cpu()
+        out = max(out, float((a - r).abs().max())
+                  / (float(r.abs().max()) or 1.0))
+    return out
+
+
+def train_smoke_cpu_vs_card(K) -> None:
+    """Path (q): ``make_loss_grad`` on the float32 smoke forms of
+    qwen3-0.6b and olmoe-1b-7b, without and with the training launcher's
+    SPLS knobs, on the card and on the CPU from the same weights and
+    batch (8 x 64 tokens): loss rtol 1e-5, every gradient leaf within 1e-4
+    x max |CPU grad|.  With SPLS, the CPU's plans are fed to the card run
+    (a near-tie of the predicted scores may plan otherwise on the card;
+    the entries where the card's own plans differ are reported).  Remat on
+    is held against remat off on the card, each with the card's own plans,
+    within 1e-5 x max |grad| (the plan rebuilt in the recompute, on
+    autograd's own thread, must be the forward's).  Then the refusal: a
+    ``cuda_flash`` forward on tensors that require grad must raise."""
+    from repro_torch.data.pipeline import DataConfig, synthetic_batch
+    from repro_torch.launch.steps import make_loss_grad
+    from repro_torch.launch.train import train_config
+    from repro_torch.models import init_params
+    from repro_torch.models.attn_backend import get_backend
+    from repro_torch.tree import leaves, tree_map
+
+    rows = []
+    K.reset_launch_counts()
+    for arch in ("qwen3-0.6b", "olmoe-1b-7b"):
+        for spls in (False, True):
+            cfg = train_config(arch, spls=spls)
+            params = init_params(cfg, seed=SEED, device="cpu")
+            batch = synthetic_batch(DataConfig(
+                vocab_size=cfg.vocab_size, seq_len=65, global_batch=8,
+                seed=SEED), 0, "cpu")
+            card = lambda tree: tree_map(lambda x: x.to("cuda"), tree)
+            cpu_plans, card_plans = [], []
+            with _Plans(cpu_plans):
+                g_cpu, m_cpu = make_loss_grad(cfg)(params, batch)
+            with _Plans(card_plans):
+                g_own, m_own = make_loss_grad(cfg)(card(params),
+                                                   card(batch))
+            g_remat, _ = make_loss_grad(dataclasses.replace(
+                cfg, remat=True))(card(params), card(batch))
+            g_card, m_card = g_own, m_own
+            plan_diff = 0
+            if spls:
+                plan_diff = sum(int((a.cpu() != b).sum()) for pa, pb in
+                                zip(card_plans, cpu_plans)
+                                for a, b in zip(pa, pb))
+                with _Plans([], feed=list(cpu_plans)):
+                    g_card, m_card = make_loss_grad(cfg)(card(params),
+                                                         card(batch))
+            row = {"arch": arch, "spls": spls,
+                   "loss_cpu": float(m_cpu["loss"]),
+                   "loss_card": float(m_card["loss"]),
+                   "grad_max_rel_err": _rel_err(g_card, g_cpu),
+                   "remat_vs_no_remat_max_rel_err": _rel_err(g_remat,
+                                                             g_own),
+                   "card_own_plan_entries_differing": plan_diff,
+                   "grad_leaves": len(leaves(g_cpu))}
+            rows.append(row)
+            if not (abs(row["loss_card"] - row["loss_cpu"])
+                    <= 1e-5 * abs(row["loss_cpu"])
+                    and row["grad_max_rel_err"] <= 1e-4
+                    and row["remat_vs_no_remat_max_rel_err"] <= 1e-5):
+                _fail(f"train_smoke_cpu_vs_card: {row}")
+    launches = K.launch_counts()
+    if any(launches.values()):
+        _fail(f"train_smoke_cpu_vs_card: kernels launched while training: "
+              f"{launches}")
+
+    # the refusal: a kernel forward that autograd would differentiate
+    cfg = train_config("qwen3-0.6b")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    q = torch.randn((1, 2, 2, 16, 16), device="cuda", generator=gen,
+                    requires_grad=True)
+    k = torch.randn((1, 2, 16, 16), device="cuda", generator=gen)
+    refusal = None
+    try:
+        get_backend("cuda_flash")(cfg, q, k, k)
+    except RuntimeError as e:
+        refusal = str(e)
+    if refusal is None or "no backward kernel" not in refusal or \
+            K.launch_counts()["flash_attention"]:
+        _fail(f"cuda_flash refusal: {refusal!r}, launches "
+              f"{K.launch_counts()}")
+    print(json.dumps({"train_smoke_cpu_vs_card": rows,
+                      "refusal": refusal}))
+
+
+def train_launcher_sweep(K) -> None:
+    """Path (r): ``repro_torch.launch.train.main`` on the card for every id
+    of the registry at its smoke form, 2 steps (the launcher's defaults:
+    global batch 8, 64 tokens); qwen3-0.6b once more with ``--spls``; then
+    ``python -m repro_torch.launch.train`` once in its own process.  Each
+    run exits 0 with finite losses, and no kernel launches."""
+    import contextlib
+    import io
+
+    from repro_torch.configs.registry import ARCH_IDS
+    from repro_torch.launch import train as launch
+
+    rows = []
+    runs = [["--arch", a] for a in ARCH_IDS] + [["--arch", "qwen3-0.6b",
+                                                 "--spls"]]
+    for args in runs:
+        buf = io.StringIO()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = launch.main(args + ["--steps", "2"])
+        torch.cuda.synchronize()
+        out = json.loads(buf.getvalue())
+        row = {"args": " ".join(args), "rc": rc,
+               "wall_s": time.perf_counter() - t0,
+               "losses": [m["loss"] for m in out],
+               "step_time_s": [m["step_time_s"] for m in out]}
+        rows.append(row)
+        if rc != 0 or not out or not all(map(math.isfinite,
+                                             row["losses"])) \
+                or any(K.launch_counts().values()):
+            _fail(f"launch.train {row['args']}: {row}, launches "
+                  f"{K.launch_counts()}")
+    src = str(Path(__file__).resolve().parent / "src")
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           "qwen3-0.6b", "--steps", "2"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                          env={**os.environ, "PYTHONPATH": src})
+    sub = {"command": "python -m repro_torch.launch.train --arch qwen3-0.6b "
+                      "--steps 2", "rc": proc.returncode,
+           "wall_s": time.perf_counter() - t0}
+    if proc.returncode != 0 or not all(
+            math.isfinite(m["loss"]) for m in json.loads(proc.stdout)):
+        _fail(f"{sub['command']}: rc {proc.returncode}, "
+              f"{proc.stdout[-400:]!r} {proc.stderr[-400:]!r}")
+    print(json.dumps({"train_launcher_sweep": rows, "subprocess": sub}))
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the exact-plan forward, path (d)
 # ---------------------------------------------------------------------------
 
@@ -2205,6 +2616,18 @@ def main() -> int:
     paths["noncausal_exact_forward"] = exact_forward(K)
     serve_bf16(K)
     paths.update(families(K))
+    t0 = time.perf_counter()
+    paths["qwen3_train"] = qwen3_train(K)
+    print(json.dumps({"phase_s": "qwen3_train",
+                      "s": time.perf_counter() - t0}))
+    t0 = time.perf_counter()
+    train_smoke_cpu_vs_card(K)
+    print(json.dumps({"phase_s": "train_smoke_cpu_vs_card",
+                      "s": time.perf_counter() - t0}))
+    t0 = time.perf_counter()
+    train_launcher_sweep(K)
+    print(json.dumps({"phase_s": "train_launcher_sweep",
+                      "s": time.perf_counter() - t0}))
     for row in rows:
         row["ptxas"] = ptxas[Path(row["source"]).stem]
     for row in rows:

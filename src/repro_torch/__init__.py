@@ -4,7 +4,8 @@ The port of the reference JAX package ``repro`` to PyTorch and
 hand-written CUDA kernels for an NVIDIA H100 (sm_90a).  It imports
 ``torch``, ``numpy`` and the standard library, never ``jax`` or ``repro``;
 its layout mirrors the reference (``configs``, ``core``, ``models``,
-``sparse_compute``, ``serving``, ``kernels``, ``observability``), and
+``sparse_compute``, ``serving``, ``kernels``, ``observability``,
+``optim``, ``data``, ``checkpoint``, ``runtime``, ``launch``), and
 ``csrc/`` holds the CUDA sources.  Entry points run on the card unless the
 caller passes ``device="cpu"``.
 
@@ -18,5 +19,9 @@ and :mod:`repro_torch.observability` its telemetry and
 ``BENCH_serving.json`` report.  :mod:`repro_torch.configs.registry` holds
 the reference's ten architectures -- dense GQA, MoE, Mamba2, the hybrid,
 the embeddings input -- and ``python -m repro_torch.launch.serve --arch
-<id>`` serves any of them.
+<id>`` serves any of them.  The reference's training stack is here too:
+``models.loss_fn``, AdamW, the synthetic data pipeline, checkpoints in its
+layout and the healing ``Trainer`` (``python -m repro_torch.launch.train
+--arch <id>``, ``python -m repro_torch.train_lm``); training runs the
+reference's differentiable routes, since no kernel has a backward.
 """

@@ -5,15 +5,44 @@ Entry points run on the card unless the caller asks for the CPU:
 instead of silently running on the CPU.  Every comparison in this
 repository is float32, so TF32 is switched off for matrix products and
 convolutions on the way in.
+
+:func:`route_as` makes the backend registries resolve ``"auto"`` as the
+reference does on a given platform, whatever device the tensors are on:
+training runs under ``route_as("cpu")`` (see
+:mod:`repro_torch.launch.steps`).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Union
+import contextlib
+import contextvars
+from typing import Iterator, Optional, Union
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "route_as", "route_platform"]
+
+_ROUTE = contextvars.ContextVar("repro_torch_route_platform", default=None)
+
+
+def route_platform() -> Optional[str]:
+    """The platform set by the innermost :func:`route_as`, or None (resolve
+    by the tensors' device)."""
+    return _ROUTE.get()
+
+
+@contextlib.contextmanager
+def route_as(platform: Optional[str]) -> Iterator[None]:
+    """Inside the block, ``"auto"`` attention and compute backends resolve
+    by the reference's rule for ``platform`` (the ``platform`` argument of
+    its ``resolve_backend``): ``"cpu"`` picks its XLA choices (the port's
+    ``torch_dense`` / ``torch_chunked`` / ``packed_torch``), ``"tpu"`` or
+    ``"cuda"`` the kernels; None restores the choice by device."""
+    token = _ROUTE.set(platform)
+    try:
+        yield
+    finally:
+        _ROUTE.reset(token)
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None

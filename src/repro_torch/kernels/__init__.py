@@ -3,7 +3,10 @@ versions and launch counters.
 
 Sources live in ``repro_torch/csrc/`` and build with ``nvcc`` at first use
 (:mod:`._build`).  Each wrapper takes its plain PyTorch version only for
-CPU tensors; for CUDA tensors it launches the kernel or raises.
+CPU tensors; for CUDA tensors it launches the kernel or raises.  No kernel
+has a backward (nor has the reference's): on either device a wrapper
+raises when grad mode is on and an input requires grad, and the
+``*_plain`` functions stay differentiable.
 :mod:`.ops` holds the reference's public entry points over them
 (``predict_matmul``, ``attention``, ``window_distances``).
 """

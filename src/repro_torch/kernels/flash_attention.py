@@ -28,7 +28,8 @@ from typing import Optional
 
 import torch
 
-from .gathered_matmul import _check, _fn, _launch, _on_cpu
+from .gathered_matmul import (_check, _fn, _launch, _on_cpu,
+                             _refuse_grad)
 
 __all__ = ["flash_attention", "flash_attention_plain", "live_mask",
            "MAX_HEAD_DIM"]
@@ -94,6 +95,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Block online-softmax attention -> (B, H, Lq, Dh) float32.  CPU
     tensors take the plain version; CUDA tensors launch the kernel on the
     current stream, without synchronising."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        _refuse_grad("flash_attention",
+                     "attention backend 'torch_dense' / 'torch_chunked'")
     if not q.is_cuda and _on_cpu(q, "flash_attention"):
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      softcap=softcap, kv_keep=kv_keep,

@@ -27,7 +27,8 @@ from typing import List, Optional, Tuple
 
 import torch
 
-from .gathered_matmul import H100_SMS, _check, _fn, _launch, _on_cpu
+from .gathered_matmul import (H100_SMS, _check, _fn, _launch, _on_cpu,
+                             _refuse_grad)
 
 __all__ = ["flash_decode", "flash_decode_plain", "decode_split_count",
            "decode_split_ranges"]
@@ -99,6 +100,10 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (float32 or bf16; q, k and v alike; float32 arithmetic inside).  CPU
     tensors take the plain version; CUDA tensors launch the kernel on the
     current stream, without synchronising."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        _refuse_grad("flash_decode",
+                     "decode backend 'torch_dense_decode'")
     if not q.is_cuda and _on_cpu(q, "flash_decode"):
         return flash_decode_plain(q, k, v, pos, softcap=softcap,
                                   window=window)

@@ -94,6 +94,17 @@ def _launch(fn, dev: int, kernel: str, *args) -> None:
                            f"(cudaError_t {rc})")
 
 
+def _refuse_grad(kernel: str, instead: str) -> None:
+    """Raise for a kernel call that autograd would need to differentiate
+    (grad mode on and an input that requires grad), on any device: the
+    kernel writes its output through a raw pointer, so the output would
+    have no ``grad_fn`` and the gradient would be lost without an error."""
+    raise RuntimeError(
+        f"{kernel} has no backward kernel (nor has the reference's Pallas "
+        f"kernel), and an input requires grad: to train, use the "
+        f"differentiable {instead}, or call it under torch.no_grad()")
+
+
 def _on_cpu(t: torch.Tensor, kernel: str) -> bool:
     """For a tensor that is not on CUDA: True on the CPU (the wrapper takes
     the plain version); raises for any other device."""
@@ -159,6 +170,9 @@ def gathered_matmul(x: torch.Tensor, w: torch.Tensor, perm: torch.Tensor,
     allowed).  CPU tensors take the plain version; CUDA tensors launch
     the kernel on the current stream, without synchronising.
     """
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        _refuse_grad("gathered_matmul",
+                     "compute backend 'packed_torch'")
     if not x.is_cuda and _on_cpu(x, "gathered_matmul"):
         return gathered_matmul_plain(x, w, perm, src_slot)
     dev = x.get_device()
@@ -186,6 +200,9 @@ def gather_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``out[i] = src[idx[i]]``: src (C, F) float32, idx (M,) int32 ->
     (M, F).  CPU tensors take the plain version; CUDA tensors launch the
     kernel on the current stream, without synchronising."""
+    if torch.is_grad_enabled() and (src.requires_grad):
+        _refuse_grad("gather_rows",
+                     "compute backend 'packed_torch'")
     if not src.is_cuda and _on_cpu(src, "gather_rows"):
         return gather_rows_plain(src, idx)
     dev = src.get_device()

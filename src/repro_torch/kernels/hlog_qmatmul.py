@@ -32,7 +32,8 @@ import torch
 
 from repro_torch.core.quantizers import hlog_project
 
-from .gathered_matmul import H100_SMS, _check, _fn, _launch, _on_cpu
+from .gathered_matmul import (H100_SMS, _check, _fn, _launch, _on_cpu,
+                             _refuse_grad)
 
 __all__ = ["hlog_qmatmul", "hlog_qmatmul_plain", "hlog_tiling"]
 
@@ -72,6 +73,9 @@ def hlog_qmatmul(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     """``hlog(xq) @ hlog(wq)`` -> (M, N) float32.  CPU tensors take the
     plain version; CUDA tensors launch the kernel on the current stream,
     without synchronising."""
+    if torch.is_grad_enabled() and (xq.requires_grad or wq.requires_grad):
+        _refuse_grad("hlog_qmatmul",
+                     "hlog_qmatmul_plain")
     if not xq.is_cuda and _on_cpu(xq, "hlog_qmatmul"):
         return hlog_qmatmul_plain(xq, wq)
     dev = xq.get_device()

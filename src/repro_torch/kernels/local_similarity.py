@@ -21,7 +21,8 @@ import ctypes
 
 import torch
 
-from .gathered_matmul import _check, _fn, _launch, _on_cpu
+from .gathered_matmul import (_check, _fn, _launch, _on_cpu,
+                             _refuse_grad)
 
 __all__ = ["local_similarity_dist", "local_similarity_plain", "MAX_WINDOW"]
 
@@ -62,6 +63,9 @@ def local_similarity_dist(spa: torch.Tensor, w: int = 8) -> torch.Tensor:
     """spa (B, H, L, Lk) float32 -> (B, H, L // w, w, w) L1 distances.
     CPU tensors take the plain version; CUDA tensors launch the kernel on
     the current stream, without synchronising."""
+    if torch.is_grad_enabled() and (spa.requires_grad):
+        _refuse_grad("local_similarity_dist",
+                     "local_similarity_plain")
     if not spa.is_cuda and _on_cpu(spa, "local_similarity_dist"):
         return local_similarity_plain(spa, w)
     dev = spa.get_device()

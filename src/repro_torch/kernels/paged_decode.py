@@ -31,7 +31,8 @@ import torch
 
 from .flash_decode import (DECODE_DTYPES, DECODE_MAX_DH, DECODE_MAX_SPLITS,
                            DECODE_MIN_SPLIT_SLOTS)
-from .gathered_matmul import H100_SMS, _check, _fn, _launch, _on_cpu
+from .gathered_matmul import (H100_SMS, _check, _fn, _launch, _on_cpu,
+                             _refuse_grad)
 
 __all__ = ["paged_flash_decode", "paged_decode_plain", "paged_split_count",
            "paged_split_ranges"]
@@ -109,6 +110,10 @@ def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
     type (float32 or bf16; q and the pages alike; float32 arithmetic
     inside).  CPU tensors take the plain version; CUDA tensors launch the
     kernel on the current stream, without synchronising."""
+    if torch.is_grad_enabled() and (q.requires_grad or k_pages.requires_grad
+                                    or v_pages.requires_grad):
+        _refuse_grad("paged_flash_decode",
+                     "paged decode backend 'torch_paged_decode'")
     if not q.is_cuda and _on_cpu(q, "paged_flash_decode"):
         return paged_decode_plain(q, k_pages, v_pages, pos_pages, tables,
                                   kv_len, pos, softcap=softcap, window=window)

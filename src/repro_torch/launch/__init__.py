@@ -1,3 +1,5 @@
 """Launchers of the PyTorch port: ``python -m repro_torch.launch.serve
---arch <id>`` serves any architecture of the registry
-(:mod:`repro_torch.configs.registry`) at its smoke size."""
+--arch <id>`` serves and ``python -m repro_torch.launch.train --arch <id>``
+trains any architecture of the registry
+(:mod:`repro_torch.configs.registry`) at its smoke size; :mod:`.steps`
+holds the training and serving step functions."""

@@ -15,7 +15,7 @@ from .mamba import (MambaCache, init_mamba, init_mamba_cache, mamba_decode,
 from .blocks import (block_decode, block_forward, init_block,
                      init_block_cache)
 from .model import (decode_step, embed_inputs, forward, head_logits,
-                    init_cache, init_params, prefill)
+                    init_cache, init_params, loss_fn, prefill)
 from .attn_backend import get_backend, resolve_backend, resolve_paged_backend
 
 __all__ = ["apply_rope", "rms_norm", "rope_freqs", "softcap", "KVCache",
@@ -27,5 +27,5 @@ __all__ = ["apply_rope", "rms_norm", "rope_freqs", "softcap", "KVCache",
            "block_decode", "block_forward", "init_block_cache",
            "decode_step", "embed_inputs", "forward",
            "head_logits", "init_block", "init_cache", "init_params",
-           "prefill", "get_backend", "resolve_backend",
+           "loss_fn", "prefill", "get_backend", "resolve_backend",
            "resolve_paged_backend"]

@@ -142,7 +142,7 @@ def attention_forward(cfg, p: dict, x: torch.Tensor,
     positions = torch.arange(L, device=x.device).expand(B, L)
     q, k, v = project_qkv(cfg, p, x, positions)
     name = resolve_backend(backend or cfg.attn_backend, x.device, "forward",
-                           plan)
+                           plan, L=L, q_capacity=q_capacity)
     o = get_backend(name)(cfg, q, k, v, window=window, plan=plan,
                           q_capacity=q_capacity, kv_capacity=kv_capacity)
     out = output_proj(cfg, p, o)

@@ -65,6 +65,22 @@ by device is the one deliberate difference from the reference's
 keeps the intra-row top-k mask the flash path drops.  Here the CPU and the
 card compute the same function, and the CPU tests name the reference's
 backend explicitly.
+
+Training.  No kernel of either package has a backward: the reference's
+Pallas kernels define no ``custom_vjp``, and ``jax.grad`` through its
+``flash_attention`` fails in Pallas's JVP rule (an ``AssertionError`` in
+``_pallas_call_jvp_rule``, jax 0.9.0), so the reference trains only
+through its XLA backends.  ``torch_dense`` and ``torch_chunked`` are their
+counterparts: registered backends of their own, differentiable by
+autograd, and not the plain version of any kernel.  With a ``platform``
+(the reference's argument, or :func:`repro_torch.device.route_as`, which
+:func:`repro_torch.launch.steps.make_loss_grad` sets to ``"cpu"``)
+``"auto"`` follows the reference's rule for that platform on any device:
+on ``"cpu"`` a ``ChunkedPlan`` -> ``torch_chunked``; a plan with reduced q
+capacity -> ``xla_packed`` (not ported: raises); a plan -> ``torch_dense``;
+``L > CHUNK_THRESHOLD`` -> ``torch_chunked``; otherwise ``torch_dense``;
+decode sites the plain decodes.  A kernel backend named explicitly stays
+the kernel, whose wrapper refuses inputs that need a gradient.
 """
 
 from __future__ import annotations
@@ -75,6 +91,7 @@ from typing import Callable, Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import route_platform
 from repro_torch.core.sparse_exec import (gather_rows, pack_by_mask,
                                           spls_attention,
                                           spls_attention_chunked,
@@ -87,12 +104,14 @@ from repro_torch.kernels import (flash_attention, flash_attention_plain,
 
 from .common import softcap as _softcap
 
-__all__ = ["AUTO", "FORWARD_BACKENDS", "DECODE_BACKENDS",
+__all__ = ["AUTO", "CHUNK_THRESHOLD", "FORWARD_BACKENDS", "DECODE_BACKENDS",
            "PAGED_DECODE_BACKENDS", "PALLAS_BLOCK_Q", "resolve_backend",
            "resolve_paged_backend", "get_backend", "site_backend"]
 
 AUTO = "auto"
 KV_CHUNK = 2048
+# the reference's CPU "auto" chunks KV above this many tokens
+CHUNK_THRESHOLD = 8192
 # the reference's Pallas q tile: SPLS q packing rounds the capacity up to
 # it, whatever tile the CUDA kernel uses, so both packages pack the same rows
 PALLAS_BLOCK_Q = 128
@@ -318,26 +337,50 @@ def site_backend(name: Optional[str], site: str = "paged_decode") -> str:
     return name if _site_of(name) == site else AUTO
 
 
+# auto under the reference's non-TPU rule (the plan-free forward choice
+# depends on L)
+_AUTO_XLA = {"decode": "torch_dense_decode",
+             "paged_decode": "torch_paged_decode"}
+
+
 def resolve_backend(name: Optional[str], device,
-                    site: str = "forward", plan=None) -> str:
+                    site: str = "forward", plan=None, *,
+                    L: Optional[int] = None,
+                    q_capacity: Optional[int] = None,
+                    platform: Optional[str] = None) -> str:
     """Concrete backend of ``site`` for tensors on ``device`` (and, at the
-    forward site, the block's ``plan``).  A name of another site falls
-    back to this site's auto choice with a ``RuntimeWarning`` (Python
-    shows it once per name and site), as in the reference, so a mistyped
-    override cannot silently run another backend."""
+    forward site, the block's ``plan``, length ``L`` and ``q_capacity``).
+    ``platform`` (default: :func:`repro_torch.device.route_platform`)
+    applies the reference's rule for that platform instead of choosing by
+    device (module docstring).  A name of another site falls back to this
+    site's auto choice with a ``RuntimeWarning`` (Python shows it once per
+    name and site), as in the reference, so a mistyped override cannot
+    silently run another backend."""
     routed = site_backend(name, site)
-    if routed == AUTO and name not in (None, AUTO):
+    if routed != AUTO:
+        return routed
+    if name not in (None, AUTO):
         warnings.warn(f"configured attention backend {name!r} is a "
                       f"{_site_of(_canonical(name))} backend but this is a "
                       f"{site} site; falling back to the auto choice for "
                       f"this site", RuntimeWarning, stacklevel=2)
-    long_plan = isinstance(plan, ChunkedPlan)
-    if routed == AUTO and site == "forward" and long_plan:
+    if site == "forward" and isinstance(plan, ChunkedPlan):
         return "torch_chunked"
-    if routed == AUTO:
+    platform = platform or route_platform()
+    if platform is None:
         on_card, on_cpu = _AUTO[site]
         return on_card if torch.device(device).type == "cuda" else on_cpu
-    return routed
+    if platform in ("tpu", "cuda"):
+        return _AUTO[site][0]
+    if site != "forward":
+        return _AUTO_XLA[site]
+    if plan is not None:
+        if q_capacity is not None and L is not None and q_capacity < L:
+            return "xla_packed"
+        return "torch_dense"
+    if L is not None and L > CHUNK_THRESHOLD:
+        return "torch_chunked"
+    return "torch_dense"
 
 
 def resolve_paged_backend(name: Optional[str], device) -> str:

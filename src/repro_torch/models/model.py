@@ -10,6 +10,12 @@ traverses the stack with ``lax.scan``, the port runs a Python loop over
 periods.  The paged serving path runs its own loop around the paged cache
 and uses :func:`embed_inputs` / :func:`head_logits` as seams.
 
+``cfg.remat`` recomputes each period in backward
+(``torch.utils.checkpoint``, non-reentrant), as the reference wraps its
+period body in ``jax.checkpoint`` -- only while autograd records; serving
+runs no checkpoint.  :func:`loss_fn` is the reference's cross-entropy
+loss.
+
 Modality frontends (the audio / vlm archs) are stubs, as in the
 reference: with ``cfg.input_mode == "embeddings"`` the model consumes
 precomputed frame / patch embeddings of shape (B, L, D) instead of token
@@ -21,16 +27,17 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, route_as, route_platform
 
 from .blocks import (block_decode, block_forward, init_block,
                      init_block_cache)
 from .common import dense_init, dtype_of, rms_norm, softcap
 
 __all__ = ["init_block", "init_params", "embed_inputs", "head_logits",
-           "period_params", "forward", "init_cache", "decode_step",
-           "prefill"]
+           "period_params", "forward", "loss_fn", "init_cache",
+           "decode_step", "prefill"]
 
 Params = Dict[str, Any]
 
@@ -118,17 +125,69 @@ def period_params(params: Params, pi: int, dtype) -> tuple:
     return tuple(one(bp) for bp in params["periods"])
 
 
+def _period(cfg, params: Params, pi: int, x: torch.Tensor,
+            platform: Optional[str] = None) -> torch.Tensor:
+    """Period ``pi``'s blocks on ``x``; ``platform`` is the routing of the
+    forward that a recompute in backward must repeat (autograd runs
+    backward on its own threads, which do not see the caller's
+    :func:`~repro_torch.device.route_as`)."""
+    with route_as(platform):
+        for blk, bp in zip(cfg.period, period_params(
+                params, pi, dtype_of(cfg.compute_dtype))):
+            x = block_forward(cfg, blk, bp, x)
+    return x
+
+
+def _records(params: Params, x: torch.Tensor) -> bool:
+    """True while autograd records the forward (grad mode on and the
+    activations or a period weight require grad)."""
+    return torch.is_grad_enabled() and (x.requires_grad or any(
+        t.requires_grad for bp in params["periods"] for t in _leaves(bp)))
+
+
 def forward(cfg, params: Params, inputs: torch.Tensor) -> torch.Tensor:
     """inputs: (B, L) int tokens or (B, L, D) embeddings -> logits (B, L,
     V).  With SPLS on, each
     block runs under its exact-top-k plan (``plan_mode="auto"``; the
-    row-block plan from ``blocks._SPLS_CHUNK_THRESHOLD`` tokens on)."""
-    dtype = dtype_of(cfg.compute_dtype)
+    row-block plan from ``blocks._SPLS_CHUNK_THRESHOLD`` tokens on).
+    With ``cfg.remat``, while autograd records, each period is
+    recomputed in backward instead of keeping its activations."""
     x = embed_inputs(cfg, params, inputs)
+    remat = cfg.remat and _records(params, x)
+    platform = route_platform()
     for pi in range(cfg.n_periods):
-        for blk, bp in zip(cfg.period, period_params(params, pi, dtype)):
-            x = block_forward(cfg, blk, bp, x)
+        if remat:
+            x = checkpoint(_period, cfg, params, pi, x, platform,
+                           use_reentrant=False)
+        else:
+            x = _period(cfg, params, pi, x, platform)
     return head_logits(cfg, params, x)
+
+
+def loss_fn(cfg, params: Params, batch: Dict[str, torch.Tensor]):
+    """Cross-entropy LM loss.  batch: ``{inputs, labels[, mask]}``.
+
+    Returns ``(loss, metrics)``: the mean over the mask (denominator at
+    least 1) of ``logsumexp - gold`` on float32 logits, and ``loss``,
+    ``accuracy`` (argmax == label, masked) and ``tokens`` (the mask's sum)
+    as detached scalars."""
+    logits = forward(cfg, params, batch["inputs"]).float()
+    labels = batch["labels"].long()
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=logits.device)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    nll = (logz - gold) * mask
+    denom = mask.sum().clamp(min=1.0)
+    loss = nll.sum() / denom
+    with torch.no_grad():
+        acc = (logits.argmax(-1) == labels).float()
+        metrics = {"loss": loss.detach(),
+                   "accuracy": (acc * mask).sum() / denom,
+                   "tokens": mask.sum()}
+    return loss, metrics
 
 
 def init_cache(cfg, batch: int, max_len: int,

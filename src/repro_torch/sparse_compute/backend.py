@@ -21,7 +21,12 @@ The reference package's names are aliases (``packed_xla`` ->
 ``packed_torch``, ``packed_pallas`` -> ``packed_cuda``), so one
 ``ServeConfig`` drives both packages.  ``"auto"`` without a sparsity plan
 is ``dense``; with one it resolves by device: the kernels on the card,
-plain PyTorch on the CPU.
+plain PyTorch on the CPU -- or, given a ``platform`` (the reference's
+argument, or :func:`repro_torch.device.route_as`, which training sets to
+``"cpu"``), by the reference's rule for it: ``packed_cuda`` on ``"tpu"`` /
+``"cuda"``, ``packed_torch`` elsewhere, on any device.  The kernels have no
+backward: their wrappers refuse inputs that need a gradient, and
+``packed_torch`` is the differentiable route.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.device import route_platform
 from repro_torch.kernels import (gather_rows, gather_rows_plain,
                                  gathered_matmul, gathered_matmul_plain)
 
@@ -107,16 +113,22 @@ def is_packed(name: Optional[str]) -> bool:
 
 
 def resolve_compute_backend(name: Optional[str], *, sparse: bool,
-                            device: torch.device) -> str:
+                            device: torch.device,
+                            platform: Optional[str] = None) -> str:
     """Map a configured name (possibly ``"auto"``/None or a reference
-    alias) to a registry key.  Packed backends without SPLS raise: there
-    is no critical-row structure to pack by."""
+    alias) to a registry key; ``platform`` as in the module docstring
+    (default: :func:`repro_torch.device.route_platform`).  Packed backends
+    without SPLS raise: there is no critical-row structure to pack by."""
     name = name or AUTO
     if name == AUTO:
         if not sparse:
             return DENSE
-        return ("packed_cuda" if torch.device(device).type == "cuda"
-                else "packed_torch")
+        platform = platform or route_platform()
+        if platform is None:
+            on_card = torch.device(device).type == "cuda"
+        else:
+            on_card = platform in ("tpu", "cuda")
+        return "packed_cuda" if on_card else "packed_torch"
     canon = _canonical(name)
     if canon not in _REGISTRY:
         raise ValueError(

@@ -16,8 +16,9 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.optim.adamw import OptState
 
-__all__ = ["params_from_jax"]
+__all__ = ["params_from_jax", "opt_state_from_jax"]
 
 
 def params_from_jax(tree, device: Optional[str] = None):
@@ -33,6 +34,17 @@ def params_from_jax(tree, device: Optional[str] = None):
         return _tensor(np.array(t, copy=True)).to(dev)
 
     return conv(tree)
+
+
+def opt_state_from_jax(state, device: Optional[str] = None):
+    """The reference's AdamW state (``OptState(count, mu, nu)`` of numpy
+    arrays, e.g. after ``np.asarray`` on every leaf) -> the port's
+    :class:`~repro_torch.optim.adamw.OptState` on ``device`` (default: the
+    card), so both packages can start from one state."""
+    dev = resolve_device(device)
+    return OptState(count=_tensor(np.array(state.count, copy=True)).to(dev),
+                    mu=params_from_jax(state.mu, dev),
+                    nu=params_from_jax(state.nu, dev))
 
 
 def _tensor(a: np.ndarray) -> torch.Tensor:
