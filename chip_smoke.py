@@ -111,6 +111,22 @@ and nothing falls back to the CPU):
    kernel wrappers' refusal of a gradient; (r) ``repro_torch.launch.train``
    on every architecture of the registry, with ``--spls``, and once as
    ``python -m``.
+8. Capacity-mode SPLS, sampling, the ESACT model, the examples: (s)
+   qwen3-0.6b at full width and depth (as (p)) trained under the
+   reference's SPLS training configuration (k 0.12, s 0.6, f 6, window 8,
+   q capacity 0.5, kv capacity 0.75 of L) through ``Trainer``, 4096
+   tokens, ``n_micro`` 8, 3 steps: every forward attention call on
+   ``torch_packed``, step 1's gradient of every layer's wq / wk / wv / wo
+   finite and nonzero, losses finite, no launch; step time, tokens/s,
+   peak memory beside (p)'s; then the float32 smoke form at q 0.5 card
+   against CPU under the CPU's plans; (t) the weights (s) trained,
+   served in float32 by temperature sampling (T 0.8) through the paged
+   engine with SPLS (B1 / B2 / B3) and the dense engine (B4 / B5), each
+   against the plain backends (tokens equal but at printed near-ties),
+   seed 0 again, seed 1, and T 0 against greedy; (u) path (d)'s measured
+   sparsity through the ESACT accelerator's model (its estimate, not the
+   card's time or energy); (v) ``repro_torch.quickstart`` and
+   ``repro_torch.spls_ablation`` (200 steps) on the card.
 
 The last lines are the ``{"kernels": [...]}`` line, the card's
 ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
@@ -118,6 +134,7 @@ The last lines are the ``{"kernels": [...]}`` line, the card's
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -2053,7 +2070,8 @@ def qwen3_train(K) -> dict:
     4 steps with a checkpoint at step 2; a fresh ``Trainer`` restored from
     step 2 runs steps 3-4, held against the uninterrupted run.  No kernel
     may launch while training.  Then the trained weights serve through B4
-    / B5 (:func:`_serve_trained`)."""
+    / B5 (:func:`_serve_trained`).  Returns the serve tail's launches and
+    the median step time."""
     import shutil
     import tempfile
 
@@ -2163,7 +2181,7 @@ def qwen3_train(K) -> dict:
     launches = _serve_trained(K, cfg, a.params, prompts, 8)
     del a
     _free()
-    return launches
+    return launches, dt
 
 
 class _Plans:
@@ -2340,6 +2358,424 @@ def train_launcher_sweep(K) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 8: capacity-mode SPLS training, sampling, the ESACT model and the
+# examples, paths (s)-(v)
+# ---------------------------------------------------------------------------
+
+# the reference's SPLS training configuration (repro/launch/dryrun.py)
+TRAIN_SPLS = dict(enabled=True, k_ratio=0.12, s_threshold=0.6,
+                  f_threshold=6, window=8, causal=True,
+                  q_capacity_ratio=0.5, kv_capacity_ratio=0.75)
+TRAIN_SPLS_L = 4096
+
+
+class _Backends:
+    """While on, records the forward backend each attention site
+    resolves (``models.attention``'s ``get_backend`` calls)."""
+
+    def __init__(self):
+        from repro_torch.models import attention
+        self.mod, self.orig, self.names = attention, attention.get_backend, []
+
+    def __enter__(self):
+        def get(name):
+            self.names.append(name)
+            return self.orig(name)
+        self.mod.get_backend = get
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.get_backend = self.orig
+
+
+def _attn_grad_norms(cfg, grads) -> dict:
+    """{weight: [norm of each layer's gradient]} of the attention
+    projections, on the host."""
+    attn = grads["periods"][0]["attn"]
+    return {w: [float(attn[w][i].float().norm())
+                for i in range(cfg.n_periods)]
+            for w in ("wq", "wk", "wv", "wo")}
+
+
+def _packed_smoke_cpu_vs_card(K) -> dict:
+    """(s)'s check at (q)'s size: ``make_loss_grad`` on qwen3-0.6b's
+    float32 smoke form at q 0.5 / kv 0.75 of L, card against CPU, the
+    CPU's plans fed to the card; loss rtol 1e-5, every leaf within 1e-4 x
+    max |CPU grad|; every forward site on ``torch_packed``."""
+    from repro_torch.data.pipeline import DataConfig, synthetic_batch
+    from repro_torch.launch.steps import make_loss_grad
+    from repro_torch.launch.train import train_config
+    from repro_torch.models import init_params
+    from repro_torch.tree import tree_map
+
+    cfg = train_config("qwen3-0.6b", spls=True)
+    cfg = dataclasses.replace(cfg, spls=dataclasses.replace(
+        cfg.spls, q_capacity_ratio=0.5, kv_capacity_ratio=0.75))
+    params = init_params(cfg, seed=SEED, device="cpu")
+    batch = synthetic_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=65,
+                                       global_batch=8, seed=SEED), 0, "cpu")
+    card = lambda tree: tree_map(lambda x: x.to("cuda"), tree)
+    plans = []
+    with _Plans(plans), _Backends() as cpu_sites:
+        g_cpu, m_cpu = make_loss_grad(cfg)(params, batch)
+    K.reset_launch_counts()
+    with _Plans([], feed=list(plans)), _Backends() as card_sites:
+        g_card, m_card = make_loss_grad(cfg)(card(params), card(batch))
+    row = {"arch": "qwen3-0.6b smoke, float32",
+           "spls": dataclasses.asdict(cfg.spls),
+           "loss_cpu": float(m_cpu["loss"]),
+           "loss_card": float(m_card["loss"]),
+           "grad_max_rel_err": _rel_err(g_card, g_cpu),
+           "sites": sorted(set(cpu_sites.names + card_sites.names)),
+           "launches": K.launch_counts()}
+    if not (abs(row["loss_card"] - row["loss_cpu"])
+            <= 1e-5 * abs(row["loss_cpu"]) and row["grad_max_rel_err"] <= 1e-4
+            and row["sites"] == ["torch_packed"]
+            and not any(row["launches"].values())):
+        _fail(f"qwen3_train_spls_packed smoke, card vs CPU: {row}")
+    return row
+
+
+def qwen3_train_spls_packed(K, dense_step_s: float):
+    """Path (s), the slice's main path: qwen3-0.6b at full width and depth
+    (float32 params, bf16 compute, remat, as (p)) trained under the
+    reference's SPLS training configuration (k 0.12, s 0.6, f 6, window 8,
+    q capacity 0.5, kv capacity 0.75 of L) through ``Trainer`` on the
+    synthetic ``lm`` task, ``TRAIN_SPLS_L`` tokens, global batch 8,
+    ``n_micro`` 8, 3 steps: every forward attention call resolves
+    ``torch_packed`` (28 sites x 8 micro-batches x 2, remat's recompute),
+    step 1's gradient of every attention weight of every layer is finite
+    and nonzero, every loss finite, no kernel launch; step time, tokens/s,
+    peak memory beside (p)'s dense step.  Then the smoke form, card
+    against CPU (:func:`_packed_smoke_cpu_vs_card`).  Returns the trained
+    parameters, which (t) serves."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.spls import SPLSConfig
+    from repro_torch.data.pipeline import DataConfig, synthetic_batch
+    from repro_torch.launch.steps import make_loss_grad
+    from repro_torch.models import init_params
+    from repro_torch.runtime import Trainer, TrainerConfig
+
+    cfg = dataclasses.replace(get_config("qwen3-0.6b"),
+                              spls=SPLSConfig(**TRAIN_SPLS))
+    n_micro, L = cfg.microbatch["train_4k"], TRAIN_SPLS_L
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=L + 1,
+                      global_batch=8, seed=SEED)
+    tokens = data.global_batch * L
+    row = {"train": "qwen3_train_spls_packed: qwen3-0.6b (28 x 1024, float32 "
+                    "params, bf16 compute, remat), SPLS k 0.12 s 0.6 f 6 "
+                    "window 8, q capacity 0.5, kv capacity 0.75, Trainer, "
+                    "lm task",
+           "seq_len": L, "global_batch": data.global_batch,
+           "n_micro": n_micro, "tokens_per_step": tokens}
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    params = init_params(cfg, seed=SEED)
+    t0 = time.perf_counter()
+    with _Backends() as sites:
+        grads, metrics = make_loss_grad(cfg, n_micro)(
+            params, synthetic_batch(data, 0))
+    torch.cuda.synchronize()
+    norms = _attn_grad_norms(cfg, grads)
+    expect = cfg.n_layers * n_micro * 2
+    row["step1_grads"] = {
+        "loss": float(metrics["loss"]), "wall_s": time.perf_counter() - t0,
+        "attn_grad_norm_min": {w: min(v) for w, v in norms.items()},
+        "attn_grad_norm_max": {w: max(v) for w, v in norms.items()},
+        "forward_attention_calls": len(sites.names),
+        "torch_packed_calls": sites.names.count("torch_packed"),
+        "expected_calls": f"{expect} = {cfg.n_layers} sites x {n_micro} "
+                          f"micro-batches x 2 (remat recomputes)"}
+    bad = {w: [i for i, x in enumerate(v) if not (math.isfinite(x) and x > 0)]
+           for w, v in norms.items()}
+    if any(bad.values()) or sites.names != ["torch_packed"] * expect:
+        _fail(f"qwen3_train_spls_packed: layers whose attention gradient "
+              f"is zero or not finite {bad}; sites "
+              f"{sorted(set(sites.names))} x {len(sites.names)} (expected "
+              f"torch_packed x {expect})")
+    del params, grads
+    _free()
+
+    t = Trainer(cfg, TrainerConfig(total_steps=3, log_every=1,
+                                   n_micro=n_micro, seed=SEED), data)
+    out = t.run()
+    launches = K.launch_counts()
+    dt = statistics.median(m["step_time_s"] for m in out["metrics"][1:])
+    row["steps"] = [{k: m[k] for k in ("step", "loss", "grad_norm",
+                                       "step_time_s")}
+                    for m in out["metrics"]]
+    row.update(step_time_s=dt, tokens_per_s=tokens / dt,
+               peak_device_bytes=torch.cuda.max_memory_allocated(),
+               dense_step_time_s_path_p=dense_step_s,
+               step_time_over_dense=dt / dense_step_s,
+               launches_while_training=launches)
+    if not all(math.isfinite(m["loss"]) for m in out["metrics"]) or \
+            len(out["metrics"]) != 3 or any(launches.values()):
+        _fail(f"qwen3_train_spls_packed: {row}")
+    _free()
+    row["smoke_card_vs_cpu"] = _packed_smoke_cpu_vs_card(K)
+    row["device"] = _smi()
+    print(json.dumps(row))
+    return t.params
+
+
+class _Picks:
+    """While on, files every sampled pick of an engine under the request
+    and output position ``(rid, j)`` it fills: the top two perturbed
+    scores' tokens and their gap, recomputed from the generator's state
+    before the draw.  It checks that the pick is their argmax and that the
+    token the engine appended is the one picked for that request's row.
+    ``slot_reqs()`` gives the engine's request per batch row (slot)."""
+
+    def __init__(self, reqs, slot_reqs):
+        from repro_torch.serving import engine
+        self.mod, self.orig = engine, engine._sample_tokens
+        self.reqs, self.slot_reqs = reqs, slot_reqs
+        self.records = {}          # (rid, j) -> ((top, second), gap)
+        self._open = None          # the last pick, until its caller appends
+
+    def _settle(self) -> None:
+        """File the last pick under the positions its caller appended."""
+        if self._open is None:
+            return
+        before, slot_of, tops, gaps = self._open
+        self._open = None
+        grown = [(r, n) for r, n in zip(self.reqs, before)
+                 if len(r.output) > n]
+        if len(tops) == 1 and len(grown) != 1:
+            _fail(f"a single-row pick filled {len(grown)} requests")
+        for r, n in grown:
+            row = 0 if len(tops) == 1 else slot_of[id(r)]
+            if r.output[n] != tops[row][0]:
+                _fail(f"request {r.rid} token {n}: appended {r.output[n]}, "
+                      f"picked {tops[row][0]}")
+            self.records[(r.rid, n)] = (tuple(tops[row]), gaps[row])
+
+    def __enter__(self):
+        tiny = torch.finfo(torch.float32).tiny
+
+        def pick(logits, greedy, temperature, generator):
+            if greedy or temperature <= 0.0:
+                return self.orig(logits, greedy, temperature, generator)
+            self._settle()
+            before = [len(r.output) for r in self.reqs]
+            slot_of = {id(q): s for s, q in enumerate(self.slot_reqs())
+                       if q is not None}
+            state = generator.get_state()
+            out = self.orig(logits, greedy, temperature, generator)
+            replay = torch.Generator(device=logits.device)
+            replay.set_state(state)
+            u = torch.rand(logits.shape, generator=replay,
+                           device=logits.device).clamp_(min=tiny)
+            top = (logits.float() / temperature
+                   - torch.log(-torch.log(u))).topk(2, dim=-1)
+            if not torch.equal(top.indices[..., 0], out):
+                _fail("a sampled pick is not the argmax of its perturbed "
+                      "scores")
+            self._open = (before, slot_of,
+                          top.indices.reshape(-1, 2).tolist(),
+                          (top.values[..., 0] - top.values[..., 1])
+                          .reshape(-1).tolist())
+            return out
+
+        self.mod._sample_tokens = pick
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._sample_tokens = self.orig
+        if exc[0] is None:
+            self._settle()
+
+    def near_tie(self, rid: int, j: int, a: int, b: int,
+                 limit: float = 1e-4):
+        """The gap of the pick at ``(rid, j)`` if its top two perturbed
+        tokens are a and b and it lies within ``limit``."""
+        rec = self.records.get((rid, j))
+        if rec is not None and set(rec[0]) == {a, b} and rec[1] <= limit:
+            return rec[1]
+        return None
+
+
+def _sampled(K, Engine, cfg, params, scfg, prompts, check=False) -> tuple:
+    """One run of ``Engine`` on ``prompts`` (16 new tokens each); its
+    tokens, launches and wall, and with ``check`` the sampled picks'
+    records (:class:`_Picks`, whose replay then lies inside the wall)."""
+    from repro_torch.serving import Request
+
+    eng = Engine(cfg, params, scfg)
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=16)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    slot_reqs = (lambda: eng.slots) if Engine.__name__ == "ServingEngine" \
+        else (lambda: [st and st.req for st in eng.sched.slots])
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    with (_Picks(reqs, slot_reqs) if check
+          else contextlib.nullcontext()) as picks:
+        eng.run_until_drained(max_ticks=5000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not all(r.done for r in reqs):
+        _fail(f"sampled serving: requests not done")
+    return [list(r.output) for r in reqs], K.launch_counts(), wall, picks
+
+
+def qwen3_sampled_serving(K, params) -> dict:
+    """Path (t): the weights (s) trained, served at full width in float32
+    by temperature sampling (T 0.8, seed 0): 4 prompts of 384 tokens from
+    (i)'s traffic, 16 new tokens each, through the paged engine with SPLS
+    (``packed_cuda`` + ``cuda_paged_decode``: B1 / B2 / B3) and the dense
+    engine (``cuda_flash`` + ``cuda_flash_decode``: B4 / B5), each against
+    the same run on the plain backends: tokens equal but at printed
+    near-ties (the top two perturbed scores within 1e-4); seed 0 again
+    repeats, seed 1 differs, ``greedy=False`` at T 0 equals greedy."""
+    from repro_torch.core.spls import SPLSConfig
+    from repro_torch.serving import (PagedServingEngine, ServeConfig,
+                                     ServingEngine)
+
+    qwen = _full_width("qwen3-0.6b", compute_dtype="float32",
+                       spls=SPLSConfig(enabled=True, k_ratio=0.12,
+                                       s_threshold=0.6, f_threshold=6,
+                                       window=8, causal=True))
+    nospls = dataclasses.replace(
+        qwen, spls=dataclasses.replace(qwen.spls, enabled=False))
+    on = lambda c, name: dataclasses.replace(c, attn_backend=name)
+    prompts = _prompts(qwen.vocab_size)[:4]
+    hot = dict(greedy=False, temperature=0.8, seed=0)
+    paged = dict(n_slots=4, page_size=16, prefill_chunk=64, max_len=512,
+                 spls_prune_vote=0.5)
+    engines = {
+        "paged_spls": (PagedServingEngine, qwen, qwen, dict(
+            paged, compute_backend="packed_cuda",
+            attn_backend="cuda_paged_decode"), dict(
+            paged, compute_backend="packed_torch",
+            attn_backend="torch_paged_decode"),
+            ("gathered_matmul", "gather_rows", "paged_flash_decode")),
+        "dense_engine": (ServingEngine, on(nospls, "cuda_flash"),
+                         on(nospls, "torch_flash"), dict(
+            n_slots=4, max_len=512, attn_backend="cuda_flash_decode"), dict(
+            n_slots=4, max_len=512, attn_backend="torch_flash_decode"),
+            ("flash_attention", "flash_decode"))}
+    paths, rows = {}, []
+    for name, (Engine, kcfg, pcfg, kscfg, pscfg, must) in engines.items():
+        run = lambda c, sc, check=False, **kw: _sampled(
+            K, Engine, c, params, ServeConfig(**{**sc, **hot, **kw}),
+            prompts, check)
+        # the checked runs warm library handles and builds; the timed
+        # ones repeat them without the replay
+        toks, _, _, picks = run(kcfg, kscfg, check=True)
+        again, launches, wall, _ = run(kcfg, kscfg)
+        plain, launches_pc, _, picks_p = run(pcfg, pscfg, check=True)
+        plain_again, launches_p, wall_p, _ = run(pcfg, pscfg)
+        seed1 = run(kcfg, kscfg, seed=1)[0]
+        cold = run(kcfg, kscfg, temperature=0.0)[0]
+        greedy = run(kcfg, kscfg, greedy=True)[0]
+        ties, bad = [], []
+        for rid, (a, b) in enumerate(zip(toks, plain)):
+            j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                     None)
+            if j is None:
+                continue
+            gap = picks.near_tie(rid, j, a[j], b[j])
+            if gap is None:
+                gap = picks_p.near_tie(rid, j, a[j], b[j])
+            (bad if gap is None else ties).append(
+                {"rid": rid, "token": j, "kernel": a[j], "plain": b[j],
+                 "gap": gap})
+        n_tok = sum(map(len, toks))
+        row = {"serve": f"qwen3_sampled_serving {name}",
+               "backends": [kcfg.attn_backend, kscfg.get("compute_backend"),
+                            kscfg["attn_backend"]],
+               "plain_backends": [pcfg.attn_backend,
+                                  pscfg.get("compute_backend"),
+                                  pscfg["attn_backend"]],
+               "temperature": 0.8, "seed": 0, "requests": len(prompts),
+               "new_tokens": n_tok, "wall_s": wall, "tok_per_s": n_tok / wall,
+               "plain_wall_s": wall_p, "sampled_picks": len(picks.records),
+               "kernel_vs_plain_equal": sum(
+                   x == y for a, b in zip(toks, plain)
+                   for x, y in zip(a, b)),
+               "near_ties": ties, "unexplained_mismatches": bad,
+               "seed0_rerun_equal": again == toks,
+               "plain_rerun_equal": plain_again == plain,
+               "seed1_differs": seed1 != toks,
+               "t0_equals_greedy": cold == greedy,
+               "sampled_differs_from_greedy": toks != greedy,
+               "launches": launches}
+        rows.append(row)
+        if bad or again != toks or seed1 == toks or cold != greedy or \
+                any(launches_p.values()) or any(launches_pc.values()) or \
+                any(launches[k] == 0 for k in must):
+            _fail(f"qwen3_sampled_serving {name}: {row}, plain launches "
+                  f"{launches_p}")
+        paths[f"qwen3_sampled_{name}"] = launches
+    print(json.dumps({"qwen3_sampled_serving": rows, "device": _smi()}))
+    return paths
+
+
+def perfmodel_from_card(report: dict) -> None:
+    """Path (u): path (d)'s reduction report (BERT-Base, 8 x 384, the mean
+    over layers, measured on the card) through the ESACT accelerator's
+    model at L 384, D 768, H 12, d_ff 3072.  The figures are the model's
+    estimate for the accelerator (16 x 64 PEs at 500 MHz), not a time or
+    an energy of the card."""
+    from repro_torch.perfmodel import (attention_level_comparison,
+                                       energy_efficiency,
+                                       reductions_from_report,
+                                       speedup_breakdown)
+
+    red = reductions_from_report(report)
+    L, D, H, d_ff = 384, 768, 12, 3072
+    sb = speedup_breakdown(L, D, H, d_ff, red)
+    prod = sb["spls_speedup"] * sb["progressive_speedup"] \
+        * sb["dynamic_speedup"]
+    rel = abs(sb["end_to_end_speedup"] - prod) / prod
+    print(json.dumps({
+        "perfmodel_from_card": "the ESACT accelerator model's estimate "
+                               "(16 x 64 PEs, 500 MHz, TSMC 28 nm), fed the "
+                               "sparsity path (d) measured on the card; not "
+                               "a time or an energy of the card",
+        "shape": {"L": L, "D": D, "H": H, "d_ff": d_ff},
+        "reductions": red, "speedup_breakdown": sb,
+        "product_rel_err": rel,
+        "energy_efficiency": energy_efficiency(L, D, H, d_ff, red),
+        "attention_level": attention_level_comparison(L, D, H,
+                                                      red["attention"])}))
+    if not rel <= 1e-12:
+        _fail(f"perfmodel: end-to-end speedup {sb['end_to_end_speedup']} "
+              f"is not the product of its factors {prod}")
+
+
+def examples_on_card() -> None:
+    """Path (v): ``repro_torch.quickstart.main([])`` and
+    ``repro_torch.spls_ablation.main(["--steps", "200"])`` on the card;
+    each prints its table."""
+    import contextlib
+    import io
+
+    from repro_torch import quickstart, spls_ablation
+
+    for name, fn, args, marker in (
+            ("quickstart", quickstart.main, [], "relative L2 deviation"),
+            ("spls_ablation", spls_ablation.main, ["--steps", "200"],
+             "spls k=0.12 s=0.8")):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            fn(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        print(buf.getvalue(), end="")
+        print(json.dumps({"example": f"repro_torch.{name}", "args": args,
+                          "wall_s": wall}))
+        if marker not in buf.getvalue():
+            _fail(f"{name} printed no table")
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the exact-plan forward, path (d)
 # ---------------------------------------------------------------------------
 
@@ -2447,7 +2883,8 @@ def exact_forward(K) -> dict:
     """Path (d): ``forward`` of the published encoder with the default
     ``plan_mode`` at full width, kernel and plain; the B6 / B7 entry points
     on every layer's own data; one block at 8192 tokens.  Returns the
-    path's launch counts."""
+    path's launch counts and its plans' mean stats and FLOPs reduction
+    over layers."""
     from repro_torch.configs.bert_base_esact import CONFIG as cfg
     from repro_torch.core import (PlanContext, build_block_plan_chunked,
                                   plan_stats, reduction_report)
@@ -2571,7 +3008,8 @@ def exact_forward(K) -> dict:
         "checked": "finite outputs only: no reference at this length"}))
     return {"flash_attention": launches["flash_attention"],
             "hlog_qmatmul": ops_launches["hlog_qmatmul"],
-            "local_similarity_dist": ops_launches["local_similarity_dist"]}
+            "local_similarity_dist": ops_launches["local_similarity_dist"]
+            }, mean
 
 
 def main() -> int:
@@ -2613,11 +3051,11 @@ def main() -> int:
             check_local_similarity(K, gen)]
     host_path(K, gen)
     paths = serve(K)
-    paths["noncausal_exact_forward"] = exact_forward(K)
+    paths["noncausal_exact_forward"], report_d = exact_forward(K)
     serve_bf16(K)
     paths.update(families(K))
     t0 = time.perf_counter()
-    paths["qwen3_train"] = qwen3_train(K)
+    paths["qwen3_train"], dense_step_s = qwen3_train(K)
     print(json.dumps({"phase_s": "qwen3_train",
                       "s": time.perf_counter() - t0}))
     t0 = time.perf_counter()
@@ -2627,6 +3065,21 @@ def main() -> int:
     t0 = time.perf_counter()
     train_launcher_sweep(K)
     print(json.dumps({"phase_s": "train_launcher_sweep",
+                      "s": time.perf_counter() - t0}))
+    t0 = time.perf_counter()
+    trained = qwen3_train_spls_packed(K, dense_step_s)
+    print(json.dumps({"phase_s": "qwen3_train_spls_packed",
+                      "s": time.perf_counter() - t0}))
+    t0 = time.perf_counter()
+    paths.update(qwen3_sampled_serving(K, trained))
+    del trained
+    _free()
+    print(json.dumps({"phase_s": "qwen3_sampled_serving",
+                      "s": time.perf_counter() - t0}))
+    perfmodel_from_card(report_d)
+    t0 = time.perf_counter()
+    examples_on_card()
+    print(json.dumps({"phase_s": "examples_on_card",
                       "s": time.perf_counter() - t0}))
     for row in rows:
         row["ptxas"] = ptxas[Path(row["source"]).stem]

@@ -9,8 +9,8 @@ its layout mirrors the reference (``configs``, ``core``, ``models``,
 ``csrc/`` holds the CUDA sources.  Entry points run on the card unless the
 caller passes ``device="cpu"``.
 
-The port serves what the reference's engines serve, greedily
-(temperature sampling is not ported): the paged engine in every mode --
+The port serves what the reference's engines serve, greedily or by
+temperature sampling: the paged engine in every mode --
 chunked SPLS prefill on packed or simulation-mode compute, without SPLS,
 without page pruning, with a finite vote horizon -- and whole-prompt
 prefill, and the dense fixed-slot engine (:mod:`repro_torch.serving`);
@@ -23,5 +23,9 @@ the embeddings input -- and ``python -m repro_torch.launch.serve --arch
 ``models.loss_fn``, AdamW, the synthetic data pipeline, checkpoints in its
 layout and the healing ``Trainer`` (``python -m repro_torch.launch.train
 --arch <id>``, ``python -m repro_torch.train_lm``); training runs the
-reference's differentiable routes, since no kernel has a backward.
+reference's differentiable routes, since no kernel has a backward
+(``torch_packed`` at a reduced q capacity).  :mod:`repro_torch.perfmodel`
+is the reference's cycle and energy model of the ESACT accelerator;
+``python -m repro_torch.quickstart`` and ``python -m
+repro_torch.spls_ablation`` are its two examples of the SPLS pipeline.
 """

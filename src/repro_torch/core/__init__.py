@@ -30,8 +30,9 @@ from .planner import (PlanContext, build_block_plan,
                       build_block_plan_chunked,
                       build_block_plan_progressive, progressive_plan_blocks)
 from .sparse_exec import (Compaction, compact_rows, gather_rows,
-                          pack_by_mask, spls_attention, spls_ffn,
-                          spls_ffn_packed, unpack_by_leader)
+                          pack_by_mask, spls_attention,
+                          spls_attention_packed, spls_ffn, spls_ffn_packed,
+                          unpack_by_leader)
 from .flops import ComponentFlops, dense_flops, reduction_report, spls_flops
 
 __all__ = [
@@ -45,7 +46,8 @@ __all__ = [
     "ChunkedPlan", "chunked_plan_scan", "PlanContext", "build_block_plan",
     "build_block_plan_chunked", "build_block_plan_progressive",
     "progressive_plan_blocks", "Compaction", "compact_rows", "gather_rows",
-    "pack_by_mask", "spls_attention", "spls_ffn", "spls_ffn_packed",
+    "pack_by_mask", "spls_attention", "spls_attention_packed", "spls_ffn",
+    "spls_ffn_packed",
     "unpack_by_leader", "ComponentFlops", "dense_flops", "reduction_report",
     "spls_flops",
 ]

@@ -7,10 +7,10 @@
   rows are packed into a fixed-capacity buffer (stable order, critical
   first), computed densely at the reduced size, and read back through the
   leader map (:func:`pack_by_mask`, :func:`unpack_by_leader`,
-  :func:`compact_rows`, :func:`spls_attention_chunked`,
-  :func:`spls_ffn_packed`).  With capacity equal to the row count this is
-  the simulation-mode row semantics; below it, overflow rows fall back to
-  their window leader.
+  :func:`compact_rows`, :func:`spls_attention_packed`,
+  :func:`spls_attention_chunked`, :func:`spls_ffn_packed`).  With
+  capacity equal to the row count this is the simulation-mode row
+  semantics; below it, overflow rows fall back to their window leader.
 """
 
 from __future__ import annotations
@@ -24,7 +24,8 @@ from .spls import SparsityPlan
 
 __all__ = ["gather_rows", "pack_by_mask", "unpack_by_leader", "Compaction",
            "compact_rows", "masked_softmax", "spls_attention",
-           "spls_attention_chunked", "spls_ffn", "spls_ffn_packed"]
+           "spls_attention_packed", "spls_attention_chunked", "spls_ffn",
+           "spls_ffn_packed"]
 
 _NEG = -1e30
 
@@ -162,6 +163,37 @@ def spls_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             lead[..., None].expand(*lead.shape, L))
     s = _softcap(torch.matmul(q_eff, k.transpose(-1, -2)) * scale, softcap)
     return torch.matmul(masked_softmax(s, mask_eff), v)
+
+
+def spls_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          plan: SparsityPlan, q_capacity: int,
+                          kv_capacity: int, scale: Optional[float] = None,
+                          softcap: Optional[float] = None) -> torch.Tensor:
+    """Capacity-mode sparse attention; q, k, v share their leading dims
+    with the plan's.  Critical Q rows are packed to ``q_capacity`` and
+    kept K/V columns to ``kv_capacity`` per (batch, head); a (Cq x Ckv)
+    masked softmax runs on the packed rows, whose outputs are scattered
+    back through the leader map.  Rows past the capacity read the last
+    packed slot (:func:`pack_by_mask`).  Differentiable: every gather's
+    backward accumulates over repeated indices."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    q_perm, q_slot = pack_by_mask(plan.q_critical, q_capacity)
+    kv_perm, _ = pack_by_mask(plan.kv_keep, kv_capacity)
+    qp = gather_rows(q, q_perm)
+    kp = gather_rows(k, kv_perm)
+    vp = gather_rows(v, kv_perm)
+    # packed mask: rows by q_perm, columns by kv_perm; slots past the kv
+    # keep count stay dead even where mask bits are set
+    L = plan.attn_mask.shape[-1]
+    qi = q_perm.long()
+    mrows = torch.gather(plan.attn_mask, -2,
+                         qi[..., None].expand(*qi.shape, L))
+    mp = _take(mrows, kv_perm[..., None, :])
+    kv_alive = torch.gather(plan.kv_keep, -1, kv_perm.long())
+    mp = mp & kv_alive[..., None, :]
+    s = _softcap(torch.matmul(qp, kp.transpose(-1, -2)) * scale, softcap)
+    op = torch.matmul(masked_softmax(s, mp), vp)
+    return unpack_by_leader(op, q_slot, plan.q_leader)
 
 
 def spls_attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -14,8 +14,8 @@ from .mamba import (MambaCache, init_mamba, init_mamba_cache, mamba_decode,
                     mamba_forward, ssd_chunked)
 from .blocks import (block_decode, block_forward, init_block,
                      init_block_cache)
-from .model import (decode_step, embed_inputs, forward, head_logits,
-                    init_cache, init_params, loss_fn, prefill)
+from .model import (abstract_params, decode_step, embed_inputs, forward,
+                    head_logits, init_cache, init_params, loss_fn, prefill)
 from .attn_backend import get_backend, resolve_backend, resolve_paged_backend
 
 __all__ = ["apply_rope", "rms_norm", "rope_freqs", "softcap", "KVCache",
@@ -25,7 +25,7 @@ __all__ = ["apply_rope", "rms_norm", "rope_freqs", "softcap", "KVCache",
            "moe_aux_loss", "moe_forward", "MambaCache", "init_mamba",
            "init_mamba_cache", "mamba_decode", "mamba_forward", "ssd_chunked",
            "block_decode", "block_forward", "init_block_cache",
-           "decode_step", "embed_inputs", "forward",
+           "abstract_params", "decode_step", "embed_inputs", "forward",
            "head_logits", "init_block", "init_cache", "init_params",
            "loss_fn", "prefill", "get_backend", "resolve_backend",
            "resolve_paged_backend"]

@@ -10,6 +10,9 @@ with ``q: (B, KV, G, L, Dh)``, ``k / v: (B, KV, L, Dh)``, ``o`` like ``q``.
   * ``torch_dense``   -- materialized scores; with a plan, the simulation-
     mode SPLS semantics (:func:`spls_attention`: leader-row recovery plus
     the full intra-row SPA mask).
+  * ``torch_packed``  -- capacity-mode SPLS (:func:`spls_attention_packed`):
+    critical rows and kept columns packed to static capacities, a masked
+    softmax at the reduced size; without a plan, ``torch_dense``.
   * ``torch_chunked`` -- KV-chunked online softmax; with a plan,
     :func:`spls_attention_chunked` (packed rows and columns, index-based
     masks, no intra-row mask): the oracle of the flash backends under a
@@ -49,10 +52,9 @@ with ``q: (B, KV, G, Dh)``, ``k/v_pages: (KV, N, ps, Dh)``, ``pos_pages:
     (:func:`repro_torch.kernels.paged_flash_decode`).
 
 The reference package's names are aliases (``xla_dense``,
-``xla_chunked``, ``pallas_flash``, ``xla_dense_decode``,
+``xla_packed``, ``xla_chunked``, ``pallas_flash``, ``xla_dense_decode``,
 ``pallas_flash_decode``, ``xla_paged_decode``, ``pallas_paged_decode``),
-so one ``ServeConfig`` drives both packages.  ``xla_packed`` is not ported
-and raises.
+so one ``ServeConfig`` drives both packages.
 
 ``"auto"`` resolves by the device of the tensors: the kernel on the card,
 its plain version on the CPU, at every site -- except that the forward
@@ -70,14 +72,15 @@ Training.  No kernel of either package has a backward: the reference's
 Pallas kernels define no ``custom_vjp``, and ``jax.grad`` through its
 ``flash_attention`` fails in Pallas's JVP rule (an ``AssertionError`` in
 ``_pallas_call_jvp_rule``, jax 0.9.0), so the reference trains only
-through its XLA backends.  ``torch_dense`` and ``torch_chunked`` are their
-counterparts: registered backends of their own, differentiable by
-autograd, and not the plain version of any kernel.  With a ``platform``
-(the reference's argument, or :func:`repro_torch.device.route_as`, which
+through its XLA backends.  ``torch_dense``, ``torch_packed`` and
+``torch_chunked`` are their counterparts: registered backends of their
+own, differentiable by autograd, and not the plain version of any kernel.
+With a ``platform`` (the reference's argument, or
+:func:`repro_torch.device.route_as`, which
 :func:`repro_torch.launch.steps.make_loss_grad` sets to ``"cpu"``)
 ``"auto"`` follows the reference's rule for that platform on any device:
 on ``"cpu"`` a ``ChunkedPlan`` -> ``torch_chunked``; a plan with reduced q
-capacity -> ``xla_packed`` (not ported: raises); a plan -> ``torch_dense``;
+capacity -> ``torch_packed``; a plan -> ``torch_dense``;
 ``L > CHUNK_THRESHOLD`` -> ``torch_chunked``; otherwise ``torch_dense``;
 decode sites the plain decodes.  A kernel backend named explicitly stays
 the kernel, whose wrapper refuses inputs that need a gradient.
@@ -95,6 +98,7 @@ from repro_torch.device import route_platform
 from repro_torch.core.sparse_exec import (gather_rows, pack_by_mask,
                                           spls_attention,
                                           spls_attention_chunked,
+                                          spls_attention_packed,
                                           unpack_by_leader)
 from repro_torch.core.spls import SparsityPlan
 from repro_torch.core.spls_chunked import ChunkedPlan
@@ -115,13 +119,12 @@ CHUNK_THRESHOLD = 8192
 # the reference's Pallas q tile: SPLS q packing rounds the capacity up to
 # it, whatever tile the CUDA kernel uses, so both packages pack the same rows
 PALLAS_BLOCK_Q = 128
-_ALIASES = {"xla_dense": "torch_dense", "xla_chunked": "torch_chunked",
-            "pallas_flash": "cuda_flash",
+_ALIASES = {"xla_dense": "torch_dense", "xla_packed": "torch_packed",
+            "xla_chunked": "torch_chunked", "pallas_flash": "cuda_flash",
             "xla_dense_decode": "torch_dense_decode",
             "pallas_flash_decode": "cuda_flash_decode",
             "xla_paged_decode": "torch_paged_decode",
             "pallas_paged_decode": "cuda_paged_decode"}
-_UNPORTED = {"xla_packed": "Queue A, deferred item 11"}
 
 
 # ---------------------------------------------------------------------------
@@ -168,6 +171,18 @@ def torch_dense(cfg, q, k, v, *, window=None, plan=None, q_capacity=None,
     s = s.masked_fill(~m, -1e30)
     a = torch.softmax(s.float(), dim=-1).to(q.dtype)
     return torch.einsum("bkgql,bkld->bkgqd", a, v)
+
+
+def torch_packed(cfg, q, k, v, *, window=None, plan=None, q_capacity=None,
+                 kv_capacity=None) -> torch.Tensor:
+    if plan is None:    # nothing to pack: the dense scores
+        return torch_dense(cfg, q, k, v, window=window)
+    L, Dh = q.shape[-2], q.shape[-1]
+    kr, vr = _with_plan_kv(q, k, v)
+    plan = _window_plan(plan, L, window, cfg.causal)
+    return spls_attention_packed(q, kr, vr, plan, q_capacity or L,
+                                 kv_capacity or L, Dh ** -0.5,
+                                 cfg.attn_softcap)
 
 
 def torch_chunked(cfg, q, k, v, *, window=None, plan=None, q_capacity=None,
@@ -289,8 +304,9 @@ def cuda_paged_decode(cfg, q, k_pages, v_pages, *, pos_pages, tables,
 
 
 FORWARD_BACKENDS: Dict[str, Callable] = {
-    "torch_dense": torch_dense, "torch_chunked": torch_chunked,
-    "torch_flash": torch_flash, "cuda_flash": cuda_flash}
+    "torch_dense": torch_dense, "torch_packed": torch_packed,
+    "torch_chunked": torch_chunked, "torch_flash": torch_flash,
+    "cuda_flash": cuda_flash}
 # one plain decode: the dense masked softmax over j <= pos (and the
 # window) is the flash kernel's plain version too
 DECODE_BACKENDS: Dict[str, Callable] = {
@@ -309,10 +325,6 @@ _AUTO = {"forward": ("cuda_flash", "torch_flash"),
 
 
 def _canonical(name: str) -> str:
-    if name in _UNPORTED:
-        raise NotImplementedError(
-            f"attention backend {name!r} is not ported yet (ROADMAP.md, "
-            f"{_UNPORTED[name]})")
     return _ALIASES.get(name, name)
 
 
@@ -376,7 +388,7 @@ def resolve_backend(name: Optional[str], device,
         return _AUTO_XLA[site]
     if plan is not None:
         if q_capacity is not None and L is not None and q_capacity < L:
-            return "xla_packed"
+            return "torch_packed"
         return "torch_dense"
     if L is not None and L > CHUNK_THRESHOLD:
         return "torch_chunked"

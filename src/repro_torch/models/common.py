@@ -60,9 +60,12 @@ def apply_rope(x: torch.Tensor, sin: torch.Tensor,
 def dense_init(gen: torch.Generator, shape: Tuple[int, ...], dtype,
                device, fan_in: Optional[int] = None) -> torch.Tensor:
     """Truncated normal in [-2, 2] scaled by 1/sqrt(fan_in).  Drawn in
-    float32 on ``gen``'s device and moved to ``device``."""
+    float32 on ``gen``'s device and moved to ``device``; on the ``meta``
+    device only the shape and dtype are made."""
     fan_in = fan_in or shape[0]
-    t = torch.empty(shape, dtype=torch.float32, device=gen.device)
+    meta = torch.device(device).type == "meta"
+    t = torch.empty(shape, dtype=torch.float32,
+                    device="meta" if meta else gen.device)
     torch.nn.init.trunc_normal_(t, mean=0.0, std=1.0, a=-2.0, b=2.0,
                                 generator=gen)
     return (t * fan_in ** -0.5).to(device=device, dtype=dtype)

@@ -35,8 +35,8 @@ from .blocks import (block_decode, block_forward, init_block,
                      init_block_cache)
 from .common import dense_init, dtype_of, rms_norm, softcap
 
-__all__ = ["init_block", "init_params", "embed_inputs", "head_logits",
-           "period_params", "forward", "loss_fn", "init_cache",
+__all__ = ["init_block", "init_params", "abstract_params", "embed_inputs",
+           "head_logits", "period_params", "forward", "loss_fn", "init_cache",
            "decode_step", "prefill"]
 
 Params = Dict[str, Any]
@@ -75,10 +75,12 @@ def init_params(cfg, seed: int = 0,
     """Random parameters from ``seed``, drawn by a ``torch.Generator`` on
     ``device`` (default: the card), so a seed gives the same weights on
     every device of one type; a full-width model of billions of parameters
-    never passes through the host."""
+    never passes through the host.  On the ``meta`` device nothing is
+    drawn or allocated (:func:`abstract_params`)."""
     dev = resolve_device(device)
     dtype = dtype_of(cfg.param_dtype)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = torch.Generator(device="cpu" if dev.type == "meta" else dev
+                          ).manual_seed(seed)
     p: Params = {"embed": dense_init(gen, (cfg.vocab_size, cfg.d_model),
                                      dtype, dev, fan_in=cfg.d_model)}
     p["periods"] = tuple(
@@ -90,6 +92,13 @@ def init_params(cfg, seed: int = 0,
         p["lm_head"] = dense_init(gen, (cfg.d_model, cfg.vocab_size), dtype,
                                   dev, fan_in=cfg.d_model)
     return p
+
+
+def abstract_params(cfg) -> Params:
+    """The parameter tree of :func:`init_params` on the ``meta`` device:
+    every leaf's shape and dtype, no storage (the reference's
+    ``jax.eval_shape(init_params)``)."""
+    return init_params(cfg, device="meta")
 
 
 def embed_inputs(cfg, params: Params, inputs: torch.Tensor) -> torch.Tensor:

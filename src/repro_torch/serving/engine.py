@@ -22,8 +22,9 @@ non-causal model (the paper's BERT-Base encoder): ``prefill`` through the
 flash backends, then the layer-0 prune vote decides which columns reach
 the pool.
 
-Both engines sample greedily.  Temperature sampling is not ported yet and
-raises ``NotImplementedError`` naming the ROADMAP.md item that ports it.
+Both engines pick greedily by default; ``ServeConfig(greedy=False,
+temperature=T)`` samples from ``softmax(logits / T)`` by Gumbel-max on the
+engine's device, from a ``torch.Generator`` seeded with ``seed``.
 """
 
 from __future__ import annotations
@@ -104,16 +105,33 @@ def _prompt_tokens(prompt) -> List[int]:
     return [int(t) for t in np.asarray(prompt).reshape(-1)]
 
 
-def _unsupported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, {item}); the port serves "
-        f"greedy sampling only")
+def _sample_tokens(logits: torch.Tensor, greedy: bool, temperature: float,
+                   generator: Optional[torch.Generator]) -> torch.Tensor:
+    """logits (..., V) -> (...,) token ids: the argmax when ``greedy`` or
+    ``temperature <= 0``, else a draw from ``softmax(logits /
+    temperature)`` by Gumbel-max (``argmax(logits / T + g)``, ``g =
+    -log(-log(u))``), as ``jax.random.categorical`` draws, with ``u``
+    uniform in ``[tiny, 1)`` on ``logits``' device."""
+    if greedy or temperature <= 0.0:
+        return logits.argmax(dim=-1)
+    u = torch.rand(logits.shape, generator=generator,
+                   device=logits.device).clamp_(
+                       min=torch.finfo(torch.float32).tiny)
+    return (logits.float() / temperature - torch.log(-torch.log(u))
+            ).argmax(dim=-1)
 
 
-def _check_greedy(scfg) -> None:
-    if not scfg.greedy:
-        raise _unsupported("temperature sampling (greedy=False)",
-                           "Queue A, deferred item 5")
+class _SamplerMixin:
+    """Each engine's token picker: one generator on the engine's device,
+    seeded from ``scfg.seed``, one batched draw per pick."""
+
+    def _init_sampler(self, scfg) -> None:
+        self._gen = torch.Generator(device=self.device).manual_seed(
+            scfg.seed)
+
+    def _pick(self, logits: torch.Tensor) -> torch.Tensor:
+        return _sample_tokens(logits, self.scfg.greedy,
+                              self.scfg.temperature, self._gen)
 
 
 def _validated_tokens(req, vocab: int, max_len: int) -> List[int]:
@@ -146,7 +164,7 @@ def _site_cfg(cfg, scfg, site: str):
 # dense fixed-slot engine (the baseline / parity oracle)
 # ---------------------------------------------------------------------------
 
-class ServingEngine:
+class ServingEngine(_SamplerMixin):
     """Continuous batching over a dense ``n_slots x max_len`` KV cache.
 
     ``device=None`` runs on the card and raises without one (pass
@@ -158,7 +176,6 @@ class ServingEngine:
         self.device = resolve_device(device)
         if cfg.input_mode != "tokens":
             raise ValueError("the engine serves token models")
-        _check_greedy(scfg)
         # the dense engine has no packed-compute path (it is the
         # simulation-mode parity oracle): say so instead of silently
         # measuring dense compute
@@ -178,6 +195,7 @@ class ServingEngine:
                 "PagedServingEngine's chunked SPLS prefill and is ignored "
                 "here", RuntimeWarning, stacklevel=2)
         self.cfg, self.scfg = cfg, scfg
+        self._init_sampler(scfg)
         self._cfg_fwd = _site_cfg(cfg, scfg, "forward")
         self._cfg_dec = _site_cfg(cfg, scfg, "decode")
         # SPLS configs prefill with the progressive (streaming-
@@ -225,7 +243,7 @@ class ServingEngine:
             for full, one in zip(self.cache, cache1):
                 for f_full, f_one in zip(full, one):
                     f_full[:, s:s + 1].copy_(f_one)
-            nxt = int(torch.argmax(logits[0, -1]))
+            nxt = int(self._pick(logits[0, -1]))
             req.output.append(nxt)
             self.telemetry.span_end("full_prefill", rid=req.rid)
             self.telemetry.first_token(req.rid)
@@ -258,7 +276,7 @@ class ServingEngine:
             self._cfg_dec, self.params, self.cache,
             torch.as_tensor(self.tokens).to(self.device),
             torch.as_tensor(self.pos).to(self.device))
-        nxt = logits[:, 0].argmax(dim=-1).tolist()
+        nxt = self._pick(logits[:, 0]).tolist()
         for s in active:
             self.slots[s].output.append(int(nxt[s]))
         self.telemetry.span_end("decode_tick")
@@ -285,7 +303,7 @@ class ServingEngine:
 # ---------------------------------------------------------------------------
 
 
-class PagedServingEngine:
+class PagedServingEngine(_SamplerMixin):
     """Continuous batching over the block-pool paged KV cache.
 
     ``device=None`` runs on the card and raises without one (pass
@@ -300,7 +318,6 @@ class PagedServingEngine:
         if not all(b.mixer == "attn" for b in cfg.period):
             raise ValueError("the paged engine is attention-only (SSM state "
                              "is O(1) per slot)")
-        _check_greedy(scfg)
         # chunked prefill needs causal cross-chunk attention; a non-causal
         # model prefills each prompt whole (and never uses the chunk
         # path's compute backend, so any backend is accepted)
@@ -352,6 +369,7 @@ class PagedServingEngine:
         self._cfg_fwd = _site_cfg(cfg, scfg, "forward")
         self._plan_mode = "progressive" if cfg.spls.enabled else "auto"
         self.cfg, self.scfg = cfg, scfg
+        self._init_sampler(scfg)
         self.params = _to_device(params, self.device)
 
         ps = scfg.page_size
@@ -606,7 +624,7 @@ class PagedServingEngine:
                      args={"kept": n_kept, "prompt_len": Lp})
 
     def _emit_first(self, st: SeqState, logits_row: torch.Tensor) -> None:
-        st.req.output.append(int(torch.argmax(logits_row)))
+        st.req.output.append(int(self._pick(logits_row)))
         st.budget -= 1
         self.telemetry.first_token(st.req.rid)
 
@@ -651,7 +669,7 @@ class PagedServingEngine:
                 self._tensor(tables), self._tensor(kv_len),
                 self._tensor(cur_pos), self._tensor(tokens),
                 backend=self._attn_backend)
-            nxt = logits[:, 0].argmax(dim=-1).tolist()
+            nxt = self._pick(logits[:, 0]).tolist()
             for st in active:
                 st.req.output.append(int(nxt[st.slot]))
                 st.kv_len += 1

@@ -171,3 +171,40 @@ def dense_engines_agree(arch_id, spls):
         done = eng.run_until_drained(max_ticks=200)
         assert len(done) == len(reqs) and all(q.done for q in reqs)
     assert [q.output for q in treqs] == [q.output for q in jreqs]
+
+
+def unrolled_scan(f, init, xs):
+    """``lax.scan`` as a Python loop (its ``ys`` unused): traced once per
+    period, so the reference's block planner is called once per layer, in
+    order."""
+    carry = init
+    for i in range(jax.tree.leaves(xs)[0].shape[0]):
+        carry, _ = f(carry, jax.tree.map(lambda a: a[i], xs))
+    return carry, None
+
+
+def record_port_plans(monkeypatch) -> list:
+    """From now on the port's block planner appends each plan it builds
+    to the returned list."""
+    from repro_torch.models import blocks as tblocks
+    plans, build = [], tblocks.build_block_plan
+
+    def record(cfg, p, xn):
+        plan = build(cfg, p, xn)
+        plans.append(plan)
+        return plan
+
+    monkeypatch.setattr(tblocks, "build_block_plan", record)
+    return plans
+
+
+def feed_reference_plans(monkeypatch, plans: list) -> None:
+    """From now on the reference's block planner returns ``plans`` in
+    order (its period scan unrolled), so both packages run one plan: the
+    packages' plans differ at near-ties of the predicted scores."""
+    from repro.models import blocks as jblocks
+    feed = iter(plans)
+    monkeypatch.setattr(jblocks, "build_block_plan", lambda cfg, p, xn:
+                        jax.tree.map(lambda a: jnp.asarray(n(a)),
+                                     next(feed)))
+    monkeypatch.setattr(jax.lax, "scan", unrolled_scan)

@@ -103,8 +103,17 @@ def test_engine_matches_reference(kind, causal, backend):
 def test_engine_refuses_what_is_not_ported():
     jc, tc = _pair("mha", False)
     _, tp = params_pair(jc)
-    with pytest.raises(NotImplementedError, match="deferred item 5"):
-        TEngine(tc, tp, TServe(greedy=False), device="cpu")
+    # temperature sampling at T 0 is the greedy pick
+    outs = []
+    for greedy in (True, False):
+        eng = TEngine(tc, tp, TServe(max_len=16, greedy=greedy,
+                                     temperature=0.0), device="cpu")
+        req = TRequest(rid=0, prompt=np.arange(6, dtype=np.int32),
+                       max_new_tokens=4)
+        eng.submit(req)
+        eng.run_until_drained()
+        outs.append(req.output)
+    assert outs[0] == outs[1] and len(outs[0]) == 4
     eng = TEngine(tc, tp, TServe(max_len=16), device="cpu")
     with pytest.raises(ValueError, match="exceeds max_len"):
         eng.submit(TRequest(rid=0, prompt=np.zeros(20, np.int32)))

@@ -1,8 +1,7 @@
 """Whole-sequence attention of the port against the reference on bridged
 weights: ``attention_forward`` on every forward backend (with and without
 the reference's SPLS plan), the flash backends' oracle
-``spls_attention_chunked``, ``xla_packed`` refusing, and ``forward``
-logits without SPLS.
+``spls_attention_chunked``, and ``forward`` logits without SPLS.
 
 Tolerances: single attention layers rtol = atol = 1e-5; logits after
 every layer rtol = atol = 1e-4 (XLA and torch order matmul sums
@@ -123,13 +122,27 @@ def test_spls_attention_chunked(kind, causal):
     np.testing.assert_allclose(n(got), np.asarray(ref), **TOL)
 
 
-def test_xla_packed_is_not_ported():
-    jc, tc = _pair("mha", False)
+@pytest.mark.parametrize("kind,causal", CASES)
+def test_attention_forward_packed(kind, causal):
+    """``xla_packed`` (the port's ``torch_packed``) through
+    ``attention_forward`` at q 0.5 / kv 0.75 of L, given the reference's
+    plan; without a plan it is the dense scores."""
+    jc, tc = _pair(kind, causal)
     jp, tp = params_pair(jc)
-    _, pt = _block0(jc, jp, tp)
-    with pytest.raises(NotImplementedError, match="deferred item 11"):
-        ta.attention_forward(tc, pt["attn"], torch.zeros(1, 8, tc.d_model),
-                             backend="xla_packed")
+    pj, pt = _block0(jc, jp, tp)
+    xn = _xn(jc, pj, L=20)
+    window = jc.period[0].window
+    jplan = jplanner.build_block_plan_progressive(jc, pj, jnp.asarray(xn))
+    for jpl, tpl in ((jplan, _plan_to_torch(jplan)), (None, None)):
+        kw = dict(window=window, q_capacity=10, kv_capacity=15)
+        jout, _ = ja.attention_forward(jc, pj["attn"], jnp.asarray(xn),
+                                       plan=jpl, backend="xla_packed", **kw)
+        tout, _ = ta.attention_forward(tc, pt["attn"], t(xn), plan=tpl,
+                                       backend="xla_packed", **kw)
+        np.testing.assert_allclose(n(tout), np.asarray(jout), **TOL)
+        own, _ = ta.attention_forward(tc, pt["attn"], t(xn), plan=tpl,
+                                      backend="torch_packed", **kw)
+        np.testing.assert_array_equal(n(own), n(tout))
 
 
 @pytest.mark.parametrize("kind,causal", CASES[1:])

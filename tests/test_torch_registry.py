@@ -1,8 +1,9 @@
 """The port's architecture registry against the reference's: the ids,
 every configuration field by field (``SPLSConfig`` included) with its
 derived properties, the ``smoke()`` forms, ``LM_SHAPES``, ``get_shape``
-and ``all_cells``; and the weight bridge on a bfloat16 parameter tree
-(every leaf bit-equal, in its own dtype).
+and ``all_cells``; the weight bridge on a bfloat16 parameter tree
+(every leaf bit-equal, in its own dtype); and ``abstract_params`` at full
+width against ``jax.eval_shape(init_params)``.
 """
 
 from __future__ import annotations
@@ -17,8 +18,11 @@ import torch
 from repro.configs import base as jbase
 from repro.configs import registry as jreg
 from repro.models import init_params as jax_init_params
+from repro.models.model import abstract_params as jax_abstract_params
 from repro_torch.configs import base as tbase
 from repro_torch.configs import registry as treg
+from repro_torch.models import abstract_params
+from repro_torch.tree import leaf_id, leaves_with_path
 from repro_torch.weights import params_from_jax
 
 from _torch_parity import arch_pair
@@ -91,3 +95,33 @@ def test_bf16_tree_bridges_bit_for_bit(arch_id):
     assert "torch.bfloat16" in dtypes
     if arch_id.startswith("jamba"):
         assert "torch.float32" in dtypes
+
+
+# leaves that ``ArchConfig.param_count`` leaves out of its count, in both
+# packages: qk-norm and post-norm scales, the conv bias; it counts an
+# ``ln2`` for every block, also for a block without an FFN
+_UNCOUNTED = ("q_norm", "k_norm", "post_ln1", "post_ln2", "conv_b")
+
+
+@pytest.mark.parametrize("arch_id", jreg.ARCH_IDS)
+def test_abstract_params_equal_reference(arch_id):
+    """Full width on the ``meta`` device: the reference's leaf paths,
+    shapes and dtypes, no storage; the sizes sum to ``param_count()`` up
+    to the leaves it does not count."""
+    cfg = treg.get_config(arch_id)
+    ref = {}
+    for path, leaf in jax.tree_util.tree_flatten_with_path(
+            jax_abstract_params(jreg.get_config(arch_id)))[0]:
+        lid = ".".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                       for k in path)
+        ref[lid] = (tuple(leaf.shape), np.dtype(leaf.dtype).name)
+    leaves = {leaf_id(p): x for p, x in leaves_with_path(
+        abstract_params(cfg))}
+    assert {k: (tuple(x.shape), str(x.dtype).split(".")[-1])
+            for k, x in leaves.items()} == ref
+    assert all(x.device.type == "meta" for x in leaves.values())
+    total = sum(x.numel() for x in leaves.values())
+    uncounted = sum(x.numel() for k, x in leaves.items()
+                    if k.split(".")[-1] in _UNCOUNTED)
+    no_ffn = sum(not b.has_ffn for b in cfg.period) * cfg.n_periods
+    assert total == cfg.param_count() + uncounted - no_ffn * cfg.d_model

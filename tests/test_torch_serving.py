@@ -3,9 +3,8 @@ weights: equal greedy tokens and equal scheduler outcomes (peak pages,
 preemptions, prefill chunks, FLOPs saved), with random and repeated-token
 prompts over several chunks, under a pool small enough to preempt, and for
 a non-causal model (whole-prompt prefill).
-Also: entry points refuse to guess a device, unsupported configurations
-name their ROADMAP item (invalid ones raise as in the reference), and the
-port imports neither jax nor repro."""
+Also: entry points refuse to guess a device, invalid configurations raise
+as in the reference, and the port imports neither jax nor repro."""
 
 from __future__ import annotations
 
@@ -136,15 +135,13 @@ def test_default_device_is_the_card():
 
 
 @pytest.mark.parametrize("change,error,match", [
-    (dict(greedy=False), NotImplementedError, "deferred item 5"),
     (dict(vote_horizon=0), ValueError, "vote_horizon must be >= 1"),
     (dict(vote_horizon=1, spls_page_prune=False), ValueError,
      "vote_horizon requires SPLS"),
 ])
 def test_unported_configurations_raise(change, error, match):
-    """Temperature sampling is not ported and names its ROADMAP item; the
-    vote horizon refuses what the reference refuses (a horizon below 1, a
-    horizon without page pruning)."""
+    """The vote horizon refuses what the reference refuses (a horizon
+    below 1, a horizon without page pruning)."""
     jc, tc = cfg_pair("mha")
     _, tp = params_pair(jc)
     with pytest.raises(error, match=match):

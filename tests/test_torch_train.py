@@ -1,7 +1,8 @@
 """Training of the port against the reference on bridged weights and the
 same numpy batches: ``loss_fn`` and every gradient leaf for every
-architecture of the registry at its smoke form (float32), with SPLS on,
-remat on against remat off, one ``make_train_step`` step at ``n_micro`` 1
+architecture of the registry at its smoke form (float32), with SPLS on
+(also at q capacity 0.5, through ``torch_packed``), remat on against
+remat off, one ``make_train_step`` step at ``n_micro`` 1
 and 2, the training routes, and the kernel wrappers' refusal of inputs
 that need a gradient.
 
@@ -39,7 +40,6 @@ from repro.configs.base import BlockCfg as JBlockCfg
 from repro.configs.registry import ARCH_IDS
 from repro.core.spls import SPLSConfig as JSPLSConfig
 from repro.launch import steps as jsteps
-from repro.models import blocks as jblocks
 from repro.models import model as jm
 from repro.optim import AdamWConfig as JAdamW
 from repro.optim import adamw_init as jadamw_init
@@ -57,7 +57,8 @@ from repro_torch.sparse_compute.backend import resolve_compute_backend
 from repro_torch.tree import leaf_id, leaves_with_path
 from repro_torch.weights import opt_state_from_jax, params_from_jax
 
-from _torch_parity import arch_pair, n, params_pair, t
+from _torch_parity import (arch_pair, feed_reference_plans, n, params_pair,
+                           record_port_plans, t)
 
 GRAD_TOL = 1e-4
 # the reference launcher's ``--spls`` knobs (repro/launch/train.py)
@@ -172,38 +173,16 @@ def _tiny_pair(spls):
 
 def _shared_plan_grads(jc, tc, jp, tp, b, monkeypatch):
     """Port and reference gradients under the port's plans."""
-    plans = []
-    build = tblocks.build_block_plan
-
-    def record(cfg, p, xn):
-        plan = build(cfg, p, xn)
-        plans.append(plan)
-        return plan
-
-    monkeypatch.setattr(tblocks, "build_block_plan", record)
+    plans = record_port_plans(monkeypatch)
     tg, tmet = tsteps.make_loss_grad(tc)(tp, as_torch(b))
     assert len(plans) == tc.n_layers
     for plan in plans:
         for f in plan:
             assert not f.is_floating_point() and not f.requires_grad
-    feed = iter(plans)
-    monkeypatch.setattr(jblocks, "build_block_plan", lambda cfg, p, xn:
-                        jax.tree.map(lambda a: jnp.asarray(n(a)),
-                                     next(feed)))
-    monkeypatch.setattr(jax.lax, "scan", _unrolled_scan)
+    feed_reference_plans(monkeypatch, plans)
     (jloss, _), jg = jax.jit(jax.value_and_grad(
         lambda p: jm.loss_fn(jc, p, as_jax(b)), has_aux=True))(jp)
     return tg, tmet, jg, jloss
-
-
-def _unrolled_scan(f, init, xs):
-    """``lax.scan`` as a Python loop (its ``ys`` unused here): traced once
-    per period, so the block planner is called once per layer, in
-    order."""
-    carry = init
-    for i in range(jax.tree.leaves(xs)[0].shape[0]):
-        carry, _ = f(carry, jax.tree.map(lambda a: a[i], xs))
-    return carry, None
 
 
 def test_spls_grads_match_reference(monkeypatch):
@@ -338,7 +317,7 @@ def test_training_routes_as_reference_cpu():
         r = lambda **kw: resolve_backend("auto", dev, "forward",
                                          platform="cpu", **kw)
         assert r(plan=chunked, L=64) == "torch_chunked"
-        assert r(plan=plan, L=64, q_capacity=32) == "xla_packed"
+        assert r(plan=plan, L=64, q_capacity=32) == "torch_packed"
         assert r(plan=plan, L=64, q_capacity=64) == "torch_dense"
         assert r(plan=plan, L=64) == "torch_dense"
         assert r(L=8193) == "torch_chunked"
@@ -449,11 +428,32 @@ def test_training_a_kernel_backend_raises(over):
         tsteps.make_loss_grad(tc)(tp, as_torch(batch_np(tc, L=32)))
 
 
-def test_training_reduced_q_capacity_is_unported():
-    """"auto" at reduced q capacity is the reference's ``xla_packed``,
-    which is not ported (ROADMAP.md, Queue A, deferred item 11)."""
-    spls = dict(LAUNCH_SPLS, q_capacity_ratio=0.5)
-    jc, tc = arch_pair("qwen3-0.6b", spls=spls)
-    _, tp = params_pair(jc, jit=True)
-    with pytest.raises(NotImplementedError, match="deferred item 11"):
-        tsteps.make_loss_grad(tc)(tp, as_torch(batch_np(tc, L=32)))
+# the reference's SPLS training configuration (repro/launch/dryrun.py)
+PACKED_SPLS = dict(q_capacity_ratio=0.5, kv_capacity_ratio=0.75)
+
+
+@pytest.mark.parametrize("arch_id", ["qwen3-0.6b", "mha_causal"])
+def test_reduced_q_capacity_grads_match_reference(arch_id, monkeypatch):
+    """At ``q_capacity_ratio`` 0.5 "auto" trains through ``torch_packed``
+    (the reference's ``xla_packed``): loss and every gradient leaf under
+    shared plans, on qwen3's smoke form (GQA G 2, qk-norm) and a causal
+    MHA model; every attention weight gets a nonzero gradient."""
+    from repro_torch.models import attn_backend as ab
+    if arch_id == "mha_causal":
+        jc, tc = _tiny_pair(dict(LAUNCH_SPLS, **PACKED_SPLS))
+        jp, tp = params_pair(jc)
+    else:
+        jc, tc = arch_pair(arch_id, spls=dict(LAUNCH_SPLS, **PACKED_SPLS))
+        jp, tp = params_pair(jc, jit=True)
+    seen = []
+    orig = ab.get_backend
+    monkeypatch.setattr("repro_torch.models.attention.get_backend",
+                        lambda name: seen.append(name) or orig(name))
+    b = batch_np(jc, L=32, seed=3)
+    tg, tmet, jg, jloss = _shared_plan_grads(jc, tc, jp, tp, b, monkeypatch)
+    assert seen == ["torch_packed"] * tc.n_layers
+    np.testing.assert_allclose(float(tmet["loss"]), float(jloss), rtol=1e-5)
+    assert_grads_match(tg, jg)
+    for w in ("wq", "wk", "wv", "wo"):
+        g = tg["periods"][0]["attn"][w]
+        assert all(float(g[i].abs().max()) > 0 for i in range(g.shape[0]))
