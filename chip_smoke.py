@@ -127,6 +127,23 @@ and nothing falls back to the CPU):
    sparsity through the ESACT accelerator's model (its estimate, not the
    card's time or energy); (v) ``repro_torch.quickstart`` and
    ``repro_torch.spls_ablation`` (200 steps) on the card.
+9. The mesh-bound layers: (q) also attributes the card's own SPLS plans
+   against the CPU's (differing entries per layer and field; for layer 0
+   max |xn_card - xn_cpu|, the CPU's plan on the card's xn, and the
+   predicted-score gap at every differing split, which must be a near-tie;
+   equal layer-0 inputs with differing plans fail); (w) qwen3-0.6b at
+   full width through ``ServingEngine`` with SPLS under a 16-wide model
+   axis (``fake`` group): flat heads, a flat plan, B4 at G 1 over 16 heads,
+   tokens equal to the structured layout's and to the plain backends' but
+   at near-ties; (x) musicgen-medium at full width, 24 heads padded to 32,
+   ``forward`` on B4 against the structured forward (1e-4 x max); (y) in a
+   subprocess, every architecture's parameter, AdamW and decode-cache
+   shardings on 16 x 16 and 2 x 16 x 16, bytes per device and the largest
+   replicated leaf; (z) in a subprocess with a one-rank NCCL group, (p)'s
+   trained checkpoint restored onto a 1 x 1 CUDA mesh through
+   ``shardings=`` (bit-equal to a plain restore) and a ``Trainer(mesh=)``
+   step equal to the step without a mesh.  ``gather_rows`` is also checked
+   and timed in bf16 (bit-equal, beside bf16 ``index_select``).
 
 The last lines are the ``{"kernels": [...]}`` line, the card's
 ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
@@ -140,6 +157,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -372,30 +390,41 @@ def check_gathered_matmul(K, gen) -> dict:
 
 
 def check_gather_rows(K, gen) -> dict:
+    """B2 at the leader scatter's shape, float32 (the row) and bf16 (the
+    copy by element size, timed beside bf16 ``index_select``, under
+    ``bf16``); both bit-equal to the plain version."""
     dev = "cuda"
     C, F, M = 48, 768, 64
-    src = torch.randn(C, F, device=dev, generator=gen)
-    idx = torch.randint(0, C, (M,), device=dev, generator=gen,
-                        dtype=torch.int32)
-    err = _max_err(K.gather_rows(src, idx), K.gather_rows_plain(src, idx))
-    if err != 0.0:
-        _fail(f"gather_rows: max |err| {err} != 0 (a copy is exact)")
-    sets = []
-    for _ in range(_n_sets((C * F + M) * 4 + M * F * 4)):
-        sets.append((torch.randn(C, F, device=dev, generator=gen),
-                     torch.randint(0, C, (M,), device=dev, generator=gen,
-                                   dtype=torch.int32)))
-    t = _timings(K.gather_rows, K.gather_rows_plain,
-                 lambda s, i: s.index_select(0, i), sets,
-                 "gather_rows_kernel")
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        size = torch.tensor([], dtype=dtype).element_size()
+        src = torch.randn(C, F, device=dev, generator=gen).to(dtype)
+        idx = torch.randint(0, C, (M,), device=dev, generator=gen,
+                            dtype=torch.int32)
+        got = K.gather_rows(src, idx)
+        err = _max_err(got.float(), K.gather_rows_plain(src, idx).float())
+        if err != 0.0 or got.dtype != dtype:
+            _fail(f"gather_rows {dtype}: max |err| {err}, dtype {got.dtype} "
+                  f"(a copy is exact)")
+        sets = []
+        for _ in range(_n_sets(C * F * size + M * 4 + M * F * size)):
+            sets.append((torch.randn(C, F, device=dev, generator=gen)
+                         .to(dtype),
+                         torch.randint(0, C, (M,), device=dev, generator=gen,
+                                       dtype=torch.int32)))
+        t = _timings(K.gather_rows, K.gather_rows_plain,
+                     lambda s, i: s.index_select(0, i), sets,
+                     "gather_rows_kernel")
+        out[dtype] = {"max_abs_err": err, **t,
+                      "bound_ms": 1e3 * 2 * M * F * size / HBM_BYTES_PER_S}
+    f32 = out[torch.float32]
     return {"name": "gather_rows", "route": "cuda",
             "source": "src/repro_torch/csrc/gather_rows.cu",
             "replaces": "src/repro/kernels/gathered_matmul.py:198",
-            "shape": {"C": C, "F": F, "M": M},
-            "max_abs_err": err, "tolerance": 0.0,
-            **t, "library": "src.index_select(0, idx)",
-            "bound_ms": 1e3 * 2 * M * F * 4 / HBM_BYTES_PER_S,
-            "bound_by": "bytes"}
+            "shape": {"C": C, "F": F, "M": M, "dtype": "float32"},
+            "tolerance": 0.0, **f32, "bound_by": "bytes",
+            "library": "src.index_select(0, idx)",
+            "bf16": out[torch.bfloat16]}
 
 
 def _decode_inputs(gen, B, KV, G, Dh, N, ps, P, kv_lens, compact: bool,
@@ -604,21 +633,21 @@ def host_path(K, gen) -> dict:
     out = torch.empty(M, F, device="cuda")
     dev = src.get_device()
     stream = torch._C._cuda_getCurrentRawStream(dev)
-    fn = GM._fn("gather_rows", "gather_rows_f32", GM._GATHER_ARGS)
+    fn = GM._fn("gather_rows", "gather_rows_bytes", GM._GATHER_ARGS)
     ptrs = (src.data_ptr(), idx.data_ptr(), out.data_ptr())
     g = {"wrapper": lambda: K.gather_rows(src, idx),
          "device_test": lambda: src.is_cuda,
-         "checks_x2": lambda: (GM._check(src, "src", torch.float32, 2, dev),
+         "checks_x2": lambda: (GM._check(src, "src", src.dtype, 2, dev),
                                GM._check(idx, "idx", torch.int32, 1, dev)),
          "alloc": lambda: src.new_empty((M, F)),
-         "bind_lookup": lambda: GM._fn("gather_rows", "gather_rows_f32",
+         "bind_lookup": lambda: GM._fn("gather_rows", "gather_rows_bytes",
                                        GM._GATHER_ARGS),
          "device_and_stream": lambda: (
              torch._C._cuda_getDevice(),
              torch._C._cuda_getCurrentRawStream(dev)),
          "data_ptrs": lambda: (src.data_ptr(), idx.data_ptr(),
                                out.data_ptr()),
-         "ctypes_call": lambda: fn(*ptrs, C, F, M, stream)}
+         "ctypes_call": lambda: fn(*ptrs, C, F * 4, M, stream)}
 
     B, KV, Dh, N, ps, P = 4, 12, 64, 129, 16, 32
     inp = _decode_inputs(gen, B, KV, 1, Dh, N, ps, P, [200, 180, 260, 150],
@@ -726,6 +755,49 @@ def _time_flash_attention(K, gen, B, KV, L, Dh) -> dict:
             "bound_by": "operations" if flop_s >= byte_s else "bytes"}
 
 
+def _flat_plan_case(gen):
+    """Path (w)'s call of B4: qwen3-0.6b's attention in the flat layout (H
+    16 at G 1, Dh 128, L 384, causal), with ``kv_keep`` and the packed q
+    rows of a flat plan that :class:`PlanContext` builds at (w)'s SPLS knobs
+    from random weights and input, laid out as ``cuda_flash`` lays them
+    (every row, critical first)."""
+    from repro_torch.core.planner import PlanContext
+    from repro_torch.core.sparse_exec import pack_by_mask
+    from repro_torch.core.spls import SPLSConfig
+
+    dev = "cuda"
+    D, KV, G, Dh, L = 1024, 8, 2, 128, 384
+    H = KV * G
+    ctx = PlanContext(SPLSConfig(enabled=True, k_ratio=0.12, s_threshold=0.6,
+                                 f_threshold=6, window=8, causal=True),
+                      D, KV, G, Dh, True, mode="flat")
+    p = {"wq": torch.randn(D, KV, G, Dh, device=dev, generator=gen) / D ** .5,
+         "wk": torch.randn(D, KV, Dh, device=dev, generator=gen) / D ** .5}
+    xn = torch.randn(1, L, D, device=dev, generator=gen)
+    plan = ctx.plan_exact(p, xn)
+    if tuple(plan.kv_keep.shape[:3]) != (1, H, 1):
+        _fail(f"flash_attention: flat plan of shape "
+              f"{tuple(plan.kv_keep.shape)}, expected (1, {H}, 1, {L})")
+    q, k, v, _, _ = _attn_case(gen, 1, KV, G, L, Dh)
+    k, v = k.repeat_interleave(G, 1), v.repeat_interleave(G, 1)
+    q_pos, _ = pack_by_mask(plan.q_critical.reshape(1, H, L), L)
+    q_pos = q_pos.to(torch.int32).contiguous()
+    qp = torch.gather(q, 2, q_pos.long()[..., None].expand(-1, -1, -1, Dh))
+    return (qp.contiguous(), k.contiguous(), v.contiguous(),
+            plan.kv_keep.reshape(1, H, L).contiguous(), q_pos)
+
+
+def _padded_case(gen):
+    """Path (x)'s call of B4: musicgen-medium's 24 heads padded to H' 32
+    at G 1 (B 2, L 512, Dh 64, causal, no plan); the 8 padded heads' q, k
+    and v are zero, as their zero ``wq`` and padded ``wk`` / ``wv`` give
+    them."""
+    q, k, v, _, _ = _attn_case(gen, 2, 32, 1, 512, 64)
+    for t in (q, k, v):
+        t[:, 24:] = 0
+    return q, k, v, None, None
+
+
 def check_flash_attention(K, gen) -> dict:
     B, KV, L, Dh = 1, 12, 384, 64
     path = dict(G=1, L=L, keep_dead=0.3, packed=True)
@@ -757,16 +829,24 @@ def check_flash_attention(K, gen) -> dict:
              ("danube", dict(G=4, H=32, L=L, Dh=120),
               dict(causal=True, window=64)),
              ("llama3_g16", dict(G=16, H=16, L=L, Dh=128),
-              dict(causal=True))]
+              dict(causal=True)),
+             # the head layouts of paths (w) and (x), G 1
+             ("qwen3_flat_plan", _flat_plan_case, dict(causal=True)),
+             ("musicgen_padded_h32", _padded_case, dict(causal=True))]
     results = []
     for name, shape, kw in cases:
-        Bc = shape.pop("B", B)
-        G = shape.pop("G")
-        Lc = shape.pop("L")
-        Dc = shape.pop("Dh", Dh)
-        Hc = shape.pop("H", KV)
-        q, k, v, keep, q_pos = _attn_case(gen, Bc, Hc // G, G, Lc, Dc,
-                                          **shape)
+        if callable(shape):
+            q, k, v, keep, q_pos = shape(gen)
+            Bc, Hc, _, Dc = q.shape
+            G = Hc // k.shape[1]
+        else:
+            Bc = shape.pop("B", B)
+            G = shape.pop("G")
+            Lc = shape.pop("L")
+            Dc = shape.pop("Dh", Dh)
+            Hc = shape.pop("H", KV)
+            q, k, v, keep, q_pos = _attn_case(gen, Bc, Hc // G, G, Lc, Dc,
+                                              **shape)
         got = K.flash_attention(q, k, v, kv_keep=keep, q_pos=q_pos, **kw)
         ref = K.flash_attention_plain(q, k, v, kv_keep=keep, q_pos=q_pos,
                                       **kw)
@@ -2071,7 +2151,8 @@ def qwen3_train(K) -> dict:
     step 2 runs steps 3-4, held against the uninterrupted run.  No kernel
     may launch while training.  Then the trained weights serve through B4
     / B5 (:func:`_serve_trained`).  Returns the serve tail's launches and
-    the median step time."""
+    the median step time, and the directory that holds the restored run's
+    checkpoints (``b``, steps 2 and 4), which the caller removes."""
     import shutil
     import tempfile
 
@@ -2170,8 +2251,9 @@ def qwen3_train(K) -> dict:
             _fail(f"qwen3_train: the restored run differs from the "
                   f"uninterrupted one: {row['restored']}")
         del b
-    finally:
+    except BaseException:
         shutil.rmtree(tmp, ignore_errors=True)
+        raise
     row["device"] = _smi()
     print(json.dumps(row))
     _free()
@@ -2181,22 +2263,26 @@ def qwen3_train(K) -> dict:
     launches = _serve_trained(K, cfg, a.params, prompts, 8)
     del a
     _free()
-    return launches, dt
+    return launches, dt, tmp
 
 
 class _Plans:
     """While on, ``blocks.build_block_plan`` records each plan it builds
-    into ``record``; with ``feed``, it returns the next plan of ``feed``
+    into ``record`` (and, given ``inputs``, each call's block params and
+    normalized input); with ``feed``, it returns the next plan of ``feed``
     (moved to the input's device) instead of building one."""
 
-    def __init__(self, record: list, feed=None):
+    def __init__(self, record: list, feed=None, inputs=None):
         from repro_torch.models import blocks
         self.blocks, self.record, self.feed = blocks, record, feed
+        self.inputs = inputs
 
     def __enter__(self):
         self.orig = build = self.blocks.build_block_plan
 
         def plan(cfg, p, xn):
+            if self.inputs is not None:
+                self.inputs.append((p, xn.detach()))
             if self.feed is None:
                 got = build(cfg, p, xn)
             else:
@@ -2210,6 +2296,65 @@ class _Plans:
 
     def __exit__(self, *exc):
         self.blocks.build_block_plan = self.orig
+
+
+# a top-k split is a near-tie when the scores it swapped lie within the
+# PAM's tolerance (PERF.md: rtol = atol = 1e-5) of the row's k-th score
+PAM_TIE = 1e-5
+
+
+def _plan_split_report(cfg, card_plans, cpu_plans, card_in, cpu_in) -> dict:
+    """C1's attribution of the card's own SPLS plans against the CPU's:
+    differing entries per layer and field; for layer 0, max |xn_card -
+    xn_cpu|, the CPU's plan on the card's own xn (which separates the
+    inputs' share from the ops'), and at every differing row of the
+    attention mask the predicted-score gap between the swapped columns and
+    the row's k-th score, on each device's own PAM."""
+    from repro_torch.core.planner import PlanContext
+    from repro_torch.core.topk import topk_count
+
+    per_layer = [{f: int((a.cpu() != b).sum())
+                  for f, a, b in zip(pa._fields, pa, pb)}
+                 for pa, pb in zip(card_plans, cpu_plans)]
+    ctx = PlanContext.for_config(cfg)
+    (p_card, xn_card), (p_cpu, xn_cpu) = card_in[0], cpu_in[0]
+    L = xn_cpu.shape[1]
+
+    def pam(p, xn):
+        qh, kh = ctx.predict_heads(p["attn"], xn, act_axis=None)
+        s = torch.matmul(qh, kh[:, :, None].transpose(-1, -2)) \
+            * ctx.Dh ** -0.5
+        if ctx.scfg.causal:
+            tri = torch.ones((L, L), dtype=torch.bool, device=s.device).tril()
+            s = s.masked_fill(~tri, torch.finfo(s.dtype).min / 2)
+        return s.cpu()
+
+    with torch.no_grad():
+        pam_cpu, pam_card = pam(p_cpu, xn_cpu), pam(p_card, xn_card)
+        on_card_xn = ctx.plan_exact(p_cpu["attn"], xn_card.cpu())
+    k = topk_count(L, ctx.scfg.k_ratio)
+    diff = card_plans[0].attn_mask.cpu() != cpu_plans[0].attn_mask
+    splits = []
+    for row in diff.any(-1).nonzero().tolist():
+        r = tuple(row)
+        cols = diff[r].nonzero().flatten()
+        gaps = []
+        for scores in (pam_cpu[r], pam_card[r]):
+            kth = torch.sort(scores, descending=True,
+                             stable=True).values[k - 1]
+            gaps.append((float((scores[cols] - kth).abs().max()),
+                         PAM_TIE * max(1.0, abs(float(kth)))))
+        splits.append({"row": row, "cols": cols.tolist(),
+                       "gap_cpu": gaps[0][0], "gap_card": gaps[1][0],
+                       "tolerance": gaps[0][1],
+                       "near_tie": all(g <= tol for g, tol in gaps)})
+    return {"per_layer": per_layer,
+            "layer0_xn_max_abs_diff": float((xn_card.cpu() - xn_cpu)
+                                            .abs().max()),
+            "layer0_card_vs_cpu_plan_on_card_xn": {
+                f: int((a.cpu() != b).sum()) for f, a, b in
+                zip(on_card_xn._fields, card_plans[0], on_card_xn)},
+            "layer0_mask_splits": splits}
 
 
 def _rel_err(grads, ref) -> float:
@@ -2253,20 +2398,34 @@ def train_smoke_cpu_vs_card(K) -> None:
                 vocab_size=cfg.vocab_size, seq_len=65, global_batch=8,
                 seed=SEED), 0, "cpu")
             card = lambda tree: tree_map(lambda x: x.to("cuda"), tree)
-            cpu_plans, card_plans = [], []
-            with _Plans(cpu_plans):
+            cpu_plans, card_plans, cpu_in, card_in = [], [], [], []
+            with _Plans(cpu_plans, inputs=cpu_in):
                 g_cpu, m_cpu = make_loss_grad(cfg)(params, batch)
-            with _Plans(card_plans):
+            with _Plans(card_plans, inputs=card_in):
                 g_own, m_own = make_loss_grad(cfg)(card(params),
                                                    card(batch))
             g_remat, _ = make_loss_grad(dataclasses.replace(
                 cfg, remat=True))(card(params), card(batch))
             g_card, m_card = g_own, m_own
-            plan_diff = 0
+            plan_diff, splits = 0, None
             if spls:
                 plan_diff = sum(int((a.cpu() != b).sum()) for pa, pb in
                                 zip(card_plans, cpu_plans)
                                 for a, b in zip(pa, pb))
+                splits = _plan_split_report(cfg, card_plans, cpu_plans,
+                                            card_in, cpu_in)
+                print(json.dumps({"c1_plan_splits": arch, **splits}))
+                layer0 = sum(splits["per_layer"][0].values())
+                wide = [x for x in splits["layer0_mask_splits"]
+                        if not x["near_tie"]]
+                if wide:
+                    _fail(f"{arch}: layer-0 plan splits that are not "
+                          f"near-ties (PAM gap > {PAM_TIE} x max(1, |k-th "
+                          f"score|)): {wide}")
+                if splits["layer0_xn_max_abs_diff"] == 0.0 and layer0:
+                    _fail(f"{arch}: layer 0's inputs are equal on both "
+                          f"devices and its plans still differ in {layer0} "
+                          f"entries: {splits['per_layer'][0]}")
                 with _Plans([], feed=list(cpu_plans)):
                     g_card, m_card = make_loss_grad(cfg)(card(params),
                                                          card(batch))
@@ -2521,11 +2680,12 @@ def qwen3_train_spls_packed(K, dense_step_s: float):
 
 
 class _Picks:
-    """While on, files every sampled pick of an engine under the request
-    and output position ``(rid, j)`` it fills: the top two perturbed
-    scores' tokens and their gap, recomputed from the generator's state
-    before the draw.  It checks that the pick is their argmax and that the
-    token the engine appended is the one picked for that request's row.
+    """While on, files every pick of an engine under the request and
+    output position ``(rid, j)`` it fills: the top two scores' tokens and
+    their gap -- the logits for a greedy pick, the perturbed scores
+    (recomputed from the generator's state before the draw) for a sampled
+    one.  It checks that the pick is their argmax and that the token the
+    engine appended is the one picked for that request's row.
     ``slot_reqs()`` gives the engine's request per batch row (slot)."""
 
     def __init__(self, reqs, slot_reqs):
@@ -2556,23 +2716,25 @@ class _Picks:
         tiny = torch.finfo(torch.float32).tiny
 
         def pick(logits, greedy, temperature, generator):
-            if greedy or temperature <= 0.0:
-                return self.orig(logits, greedy, temperature, generator)
+            argmax = greedy or temperature <= 0.0
             self._settle()
             before = [len(r.output) for r in self.reqs]
             slot_of = {id(q): s for s, q in enumerate(self.slot_reqs())
                        if q is not None}
-            state = generator.get_state()
-            out = self.orig(logits, greedy, temperature, generator)
-            replay = torch.Generator(device=logits.device)
-            replay.set_state(state)
-            u = torch.rand(logits.shape, generator=replay,
-                           device=logits.device).clamp_(min=tiny)
-            top = (logits.float() / temperature
-                   - torch.log(-torch.log(u))).topk(2, dim=-1)
+            if argmax:
+                out = self.orig(logits, greedy, temperature, generator)
+                top = logits.float().topk(2, dim=-1)
+            else:
+                state = generator.get_state()
+                out = self.orig(logits, greedy, temperature, generator)
+                replay = torch.Generator(device=logits.device)
+                replay.set_state(state)
+                u = torch.rand(logits.shape, generator=replay,
+                               device=logits.device).clamp_(min=tiny)
+                top = (logits.float() / temperature
+                       - torch.log(-torch.log(u))).topk(2, dim=-1)
             if not torch.equal(top.indices[..., 0], out):
-                _fail("a sampled pick is not the argmax of its perturbed "
-                      "scores")
+                _fail("a pick is not the argmax of its (perturbed) scores")
             self._open = (before, slot_of,
                           top.indices.reshape(-1, 2).tolist(),
                           (top.values[..., 0] - top.values[..., 1])
@@ -2599,8 +2761,9 @@ class _Picks:
 
 def _sampled(K, Engine, cfg, params, scfg, prompts, check=False) -> tuple:
     """One run of ``Engine`` on ``prompts`` (16 new tokens each); its
-    tokens, launches and wall, and with ``check`` the sampled picks'
-    records (:class:`_Picks`, whose replay then lies inside the wall)."""
+    tokens, launches and wall, and with ``check`` the picks' records
+    (:class:`_Picks`, greedy ones too, whose replay then lies inside the
+    wall)."""
     from repro_torch.serving import Request
 
     eng = Engine(cfg, params, scfg)
@@ -2778,6 +2941,365 @@ def examples_on_card() -> None:
 # ---------------------------------------------------------------------------
 # phase 4: the exact-plan forward, path (d)
 # ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def _model_axis(model: int):
+    """A (1, ``model``) ``(data, model)`` mesh over the ``fake`` process
+    group (``model`` ranks, this process rank 0) with its activation rules
+    installed, as a tensor-parallel launcher installs them; the tensors stay
+    plain ones on the card (one global view), so only the head layout
+    follows the mesh.  The group is destroyed on exit."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.launch.mesh import make_cpu_mesh
+    from repro_torch.sharding import axis_rules
+    from repro_torch.sharding.rules import activation_rules
+
+    dist.init_process_group("fake", rank=0, world_size=model,
+                            store=FakeStore())
+    try:
+        mesh = make_cpu_mesh(1, model)
+        with axis_rules(activation_rules(mesh), mesh):
+            yield mesh
+    finally:
+        dist.destroy_process_group()
+
+
+def qwen3_flat_heads(K) -> dict:
+    """Path (w): qwen3-0.6b at full width and depth, float32, (i)'s SPLS
+    knobs, (i)'s traffic cut to 4 prompts of 384 (the script's time
+    limit), 16 new tokens each, through
+    ``ServingEngine`` on ``cuda_flash`` + ``cuda_flash_decode`` under a
+    mesh whose model axis is 16: KV 8 and G 2 do not divide it, H 16 does,
+    so the layout is flat -- a flat SPLS plan, B4 at G 1 over 16 heads;
+    decode stays structured (B5).  Tokens must equal the same engine's
+    without a mesh (the structured layout) but at near-ties (top two logits
+    within 1e-4 at the first differing pick); then the plain backends in
+    the flat layout, tokens equal likewise."""
+    from repro_torch.core.spls import SPLSConfig
+    from repro_torch.models.attention import head_shard_mode
+    from repro_torch.serving import ServeConfig, ServingEngine
+
+    qwen = _full_width("qwen3-0.6b", compute_dtype="float32",
+                       spls=SPLSConfig(enabled=True, k_ratio=0.12,
+                                       s_threshold=0.6, f_threshold=6,
+                                       window=8, causal=True))
+    params = _params(qwen)
+    prompts = _prompts(qwen.vocab_size)[:4]
+    dense = dict(n_slots=4, max_len=512)
+    kern = (dataclasses.replace(qwen, attn_backend="cuda_flash"),
+            ServeConfig(attn_backend="cuda_flash_decode", **dense))
+    plain = (dataclasses.replace(qwen, attn_backend="torch_flash"),
+             ServeConfig(attn_backend="torch_flash_decode", **dense))
+    run = lambda c, check=True: _sampled(K, ServingEngine, c[0], params,
+                                         c[1], prompts, check)
+    run(kern, check=False)                       # warm-up: handles, builds
+    structured, launches_s, wall_s, picks_s = run(kern)
+    with _model_axis(16):
+        mode = head_shard_mode(qwen)
+        if mode != "flat":
+            _fail(f"qwen3_flat_heads: layout {mode!r} under a 16-wide "
+                  f"model axis, expected 'flat'")
+        flat, launches, wall, picks = run(kern)
+        flat_plain, launches_p, wall_p, picks_p = run(plain)
+    if any(launches_p.values()):
+        _fail(f"qwen3_flat_heads: the plain backends launched {launches_p}")
+    zero = [k for k in ("flash_attention", "flash_decode") if not launches[k]]
+    if zero:
+        _fail(f"qwen3_flat_heads: kernels never launched: {zero}")
+
+    def compare(a_runs, b_runs, a_picks, b_picks):
+        ties, bad = [], []
+        for rid, (a, b) in enumerate(zip(a_runs, b_runs)):
+            j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                     None)
+            if j is None:
+                continue
+            gap = a_picks.near_tie(rid, j, a[j], b[j])
+            if gap is None:
+                gap = b_picks.near_tie(rid, j, a[j], b[j])
+            (bad if gap is None else ties).append(
+                {"rid": rid, "token": j, "a": a[j], "b": b[j], "gap": gap})
+        return ties, bad
+
+    ties, bad = compare(flat, structured, picks, picks_s)
+    ties_p, bad_p = compare(flat, flat_plain, picks, picks_p)
+    n_tok = sum(map(len, flat))
+    row = {"serve": "qwen3_flat_heads: qwen3-0.6b (28 x 1024, 16 heads, 8 "
+                    "KV heads, float32), SPLS, ServingEngine, cuda_flash + "
+                    "cuda_flash_decode, (1, 16) mesh: flat heads",
+           "requests": len(prompts), "new_tokens": n_tok,
+           "wall_s": wall, "tok_per_s": n_tok / wall,
+           "structured_wall_s": wall_s, "plain_flat_wall_s": wall_p,
+           "launches": launches, "structured_launches": launches_s,
+           "flat_vs_structured_equal": sum(
+               x == y for a, b in zip(flat, structured)
+               for x, y in zip(a, b)),
+           "flat_kernel_vs_plain_equal": sum(
+               x == y for a, b in zip(flat, flat_plain)
+               for x, y in zip(a, b)),
+           "near_ties": ties + ties_p,
+           "unexplained_mismatches": bad + bad_p,
+           "device": _smi()}
+    print(json.dumps(row, default=str))
+    if bad or bad_p:
+        _fail(f"qwen3_flat_heads: tokens differ off a near-tie: "
+              f"{bad + bad_p}")
+    del params
+    _free()
+    return {"qwen3_flat_heads": launches}
+
+
+def musicgen_padded_heads(K) -> dict:
+    """Path (x): musicgen-medium at full width and depth (48 x 1536, 24
+    heads, float32; published compute bf16, a cut: in bf16 the 32-head
+    ``wo`` sum would round elsewhere than the 24-head one over 48 layers),
+    2 inputs of 512 frame embeddings through ``models.forward`` on
+    ``cuda_flash``: under a 16-wide model axis nothing divides 24, so the
+    heads are padded to H' 32 (zero ``wq`` / ``wo`` rows, no SPLS plan),
+    against the structured forward without a mesh, and against the plain
+    backend (``torch_flash``) under the same mesh.  Logits within 1e-4 x
+    max |structured| and 1e-4 x max |plain| (PERF.md's limit for logits
+    after several layers)."""
+    from repro_torch.models import forward
+    from repro_torch.models.attention import _pad_heads_to, head_shard_mode
+
+    cfg = _full_width("musicgen-medium", compute_dtype="float32",
+                      attn_backend="cuda_flash")
+    params = _params(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn((2, 512, cfg.d_model), device="cuda", generator=gen)
+
+    def timed(c=cfg):
+        with torch.no_grad():
+            forward(c, params, x)                    # warm
+            torch.cuda.synchronize()
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            out = forward(c, params, x)
+            torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, K.launch_counts()
+
+    ref, wall_s, launches_s = timed()
+    with _model_axis(16):
+        mode, hp = head_shard_mode(cfg), _pad_heads_to(cfg)
+        got, wall, launches = timed()
+        plain, wall_p, launches_p = timed(
+            dataclasses.replace(cfg, attn_backend="torch_flash"))
+    if (mode, hp) != ("padded", 32):
+        _fail(f"musicgen_padded_heads: layout {mode!r}, H' {hp}")
+    if any(launches_p.values()):
+        _fail(f"musicgen_padded_heads: the plain backend launched "
+              f"{launches_p}")
+    err = float((got - ref).abs().max())
+    limit = 1e-4 * float(ref.abs().max())
+    err_p = float((got - plain).abs().max())
+    limit_p = 1e-4 * float(plain.abs().max())
+    row = {"forward": "musicgen_padded_heads: musicgen-medium (48 x 1536, "
+                      "24 heads padded to 32, float32), 2 x 512 frame "
+                      "embeddings, cuda_flash, (1, 16) mesh",
+           "wall_s": wall, "structured_wall_s": wall_s,
+           "launches": launches, "structured_launches": launches_s,
+           "max_abs_err": err, "limit": limit,
+           "max_abs_structured": float(ref.abs().max()),
+           "plain_padded_wall_s": wall_p,
+           "kernel_vs_plain_padded_max_abs_err": err_p,
+           "kernel_vs_plain_padded_limit": limit_p,
+           "finite": bool(torch.isfinite(got).all()), "device": _smi()}
+    print(json.dumps(row))
+    if not (row["finite"] and err <= limit and err_p <= limit_p):
+        _fail(f"musicgen_padded_heads: {row}")
+    if launches["flash_attention"] != cfg.n_layers:
+        _fail(f"musicgen_padded_heads: B4 launched "
+              f"{launches['flash_attention']} times, expected "
+              f"{cfg.n_layers}")
+    del params, ref, got, plain
+    _free()
+    return {"musicgen_padded_heads": launches}
+
+
+def production_specs_table() -> None:
+    """The body of path (y), run in a process of its own: every
+    architecture's parameter, AdamW-state and decode-cache shardings at
+    full width on 16 x 16 and 2 x 16 x 16 over the ``fake`` group; the
+    bytes a device holds of each, and the largest leaf left replicated."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.configs.base import LM_SHAPES
+    from repro_torch.configs.registry import ARCH_IDS, get_config
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import abstract_cache, abstract_params
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.sharding import mesh_axis_sizes
+    from repro_torch.sharding.rules import (cache_sharding,
+                                            opt_state_sharding,
+                                            param_sharding)
+    from repro_torch.tree import leaf_id, leaves_with_path
+
+    decode = next(s for s in LM_SHAPES if s.name == "decode_32k")
+    rows = []
+    for multi_pod in (False, True):
+        dist.init_process_group("fake", rank=0,
+                                world_size=512 if multi_pod else 256,
+                                store=FakeStore())
+        try:
+            mesh = make_production_mesh(multi_pod=multi_pod,
+                                        device_type="cpu")
+            sizes = mesh_axis_sizes(mesh)
+
+            def per_device(tree, shd):
+                total, largest = 0, (0, None)
+                for (path, t), (_, s) in zip(leaves_with_path(tree),
+                                             leaves_with_path(shd)):
+                    n = t.numel() * t.element_size()
+                    for ax in s.spec:
+                        for a in (() if ax is None else (ax,)
+                                  if isinstance(ax, str) else ax):
+                            n //= sizes[a]
+                    total += n
+                    if all(ax is None for ax in s.spec):
+                        largest = max(largest, (n, leaf_id(path)),
+                                      key=lambda x: x[0])
+                return total, largest
+
+            for arch in ARCH_IDS:
+                cfg = get_config(arch)
+                ab = abstract_params(cfg)
+                pshd = param_sharding(cfg, mesh, ab)
+                opt = adamw_init(AdamWConfig(), ab)
+                oshd = opt_state_sharding(pshd, opt)
+                cache = abstract_cache(cfg, decode.global_batch,
+                                       decode.seq_len)
+                cshd = cache_sharding(cfg, mesh, cache, decode.global_batch,
+                                      decode.seq_len)
+                row = {"arch": arch, "mesh": "x".join(
+                    str(v) for v in sizes.values())}
+                for what, tree, shd in (("params", ab, pshd),
+                                        ("adamw", opt, oshd),
+                                        ("decode_32k_cache", cache, cshd)):
+                    total, (big, big_id) = per_device(tree, shd)
+                    row[f"{what}_bytes_per_device"] = total
+                    row[f"{what}_largest_replicated"] = [big_id, big]
+                rows.append(row)
+        finally:
+            dist.destroy_process_group()
+    print(json.dumps({"production_specs": rows}))
+
+
+def production_specs() -> None:
+    """Path (y): :func:`production_specs_table` in a subprocess, which
+    keeps the ``fake`` default process group out of the other phases."""
+    root = Path(__file__).resolve().parent
+    out = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke as c; "
+         "c.sys.path.insert(0, 'src'); c.production_specs_table()"],
+        cwd=root, capture_output=True, text=True, timeout=300)
+    if out.returncode:
+        _fail(f"production_specs: exit {out.returncode}: "
+              f"{out.stderr[-2000:]}")
+    print(out.stdout.strip().splitlines()[-1])
+
+
+def sharded_restore_body(ckpt: str) -> None:
+    """The body of path (z), run in a process of its own: a one-rank NCCL
+    group and a 1 x 1 CUDA ``DeviceMesh``; the trained qwen3-0.6b
+    checkpoint of path (p) restored through ``shardings=`` must equal a
+    plain restore bit for bit, leaf by leaf; then one ``Trainer(mesh=)``
+    step from the sharded state (the ``DTensor`` leaves, which the trainer
+    gathers when it starts) must equal the same step without a mesh from
+    the plain restore."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch.mesh import make_cpu_mesh
+    from repro_torch.models import abstract_params
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.runtime import Trainer, TrainerConfig
+    from repro_torch.sharding.rules import (opt_state_sharding,
+                                            param_sharding)
+    from repro_torch.tree import leaves
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1)
+        try:
+            torch.cuda.set_device(0)
+            mesh = make_cpu_mesh(1, 1, device_type="cuda")
+            cfg = get_config("qwen3-0.6b")
+            like_p = abstract_params(cfg)        # structure and dtypes
+            like = {"params": like_p,
+                    "opt": adamw_init(AdamWConfig(), like_p)}
+            t0 = time.perf_counter()
+            plain, step, _ = restore_checkpoint(ckpt, like)
+            plain_s = time.perf_counter() - t0
+            pshd = param_sharding(cfg, mesh, like_p)
+            shd = {"params": pshd,
+                   "opt": opt_state_sharding(pshd, like["opt"])}
+            t0 = time.perf_counter()
+            sharded, step2, _ = restore_checkpoint(ckpt, like,
+                                                   shardings=shd)
+            torch.cuda.synchronize()
+            sharded_s = time.perf_counter() - t0
+            del like
+            n_leaves, n_diff = 0, 0
+            for a, b in zip(leaves(sharded), leaves(plain)):
+                n_leaves += 1
+                loc = a.to_local()
+                n_diff += int(not (loc.dtype == b.dtype and
+                                   torch.equal(loc, b)))
+            placements = sorted({repr(tuple(x.placements))
+                                 for x in leaves(sharded)})
+
+            data = DataConfig(vocab_size=cfg.vocab_size, seq_len=513,
+                              global_batch=2, seed=SEED)
+            runs = {}
+            for name, m, state in (("mesh", mesh, sharded),
+                                   ("plain", None, plain)):
+                tr = Trainer(cfg, TrainerConfig(total_steps=step + 1,
+                                                log_every=1, seed=SEED),
+                             data, mesh=m)
+                tr.params, tr.opt_state = state["params"], state["opt"]
+                tr.step = step
+                out = tr.run()
+                runs[name] = (tr.params, out["metrics"][-1]["loss"])
+            same = all(torch.equal(a, b) for a, b in
+                       zip(leaves(runs["mesh"][0]),
+                           leaves(runs["plain"][0])))
+            row = {"sharded_restore_on_card": ckpt, "step": step,
+                   "leaves": n_leaves, "leaves_differing": n_diff,
+                   "placements": placements, "plain_restore_s": plain_s,
+                   "sharded_restore_s": sharded_s,
+                   "trainer_mesh_loss": runs["mesh"][1],
+                   "trainer_plain_loss": runs["plain"][1],
+                   "trainer_step_params_equal": same}
+            print(json.dumps(row))
+            if n_diff or step != step2 or not same or \
+                    runs["mesh"][1] != runs["plain"][1]:
+                raise SystemExit(f"sharded_restore_on_card: {row}")
+        finally:
+            dist.destroy_process_group()
+
+
+def sharded_restore_on_card(ckpt: Path) -> None:
+    """Path (z): :func:`sharded_restore_body` in a subprocess (its NCCL
+    group stays out of this process)."""
+    root = Path(__file__).resolve().parent
+    out = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke as c; "
+         "c.sys.path.insert(0, 'src'); "
+         f"c.sharded_restore_body({str(ckpt)!r})"],
+        cwd=root, capture_output=True, text=True, timeout=600)
+    if out.returncode:
+        _fail(f"sharded_restore_on_card: exit {out.returncode}: "
+              f"{out.stdout[-1500:]} {out.stderr[-2500:]}")
+    print(out.stdout.strip().splitlines()[-1])
+
 
 def _forward_run(K, cfg, params, toks):
     torch.cuda.synchronize()
@@ -3055,8 +3577,15 @@ def main() -> int:
     serve_bf16(K)
     paths.update(families(K))
     t0 = time.perf_counter()
-    paths["qwen3_train"], dense_step_s = qwen3_train(K)
+    paths["qwen3_train"], dense_step_s, ckpt = qwen3_train(K)
     print(json.dumps({"phase_s": "qwen3_train",
+                      "s": time.perf_counter() - t0}))
+    t0 = time.perf_counter()
+    try:
+        sharded_restore_on_card(ckpt / "b")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    print(json.dumps({"phase_s": "sharded_restore_on_card",
                       "s": time.perf_counter() - t0}))
     t0 = time.perf_counter()
     train_smoke_cpu_vs_card(K)
@@ -3080,6 +3609,15 @@ def main() -> int:
     t0 = time.perf_counter()
     examples_on_card()
     print(json.dumps({"phase_s": "examples_on_card",
+                      "s": time.perf_counter() - t0}))
+    for name, phase in (("qwen3_flat_heads", qwen3_flat_heads),
+                        ("musicgen_padded_heads", musicgen_padded_heads)):
+        t0 = time.perf_counter()
+        paths.update(phase(K))
+        print(json.dumps({"phase_s": name, "s": time.perf_counter() - t0}))
+    t0 = time.perf_counter()
+    production_specs()
+    print(json.dumps({"phase_s": "production_specs",
                       "s": time.perf_counter() - t0}))
     for row in rows:
         row["ptxas"] = ptxas[Path(row["source"]).stem]

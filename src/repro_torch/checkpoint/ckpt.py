@@ -29,7 +29,8 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.tree import leaf_id, leaves_with_path, tree_map_with_path
+from repro_torch.tree import (leaf_id, leaves_with_path, tree_map,
+                              tree_map_with_path)
 
 __all__ = ["save_checkpoint", "restore_checkpoint", "latest_step",
            "cleanup_old"]
@@ -94,11 +95,19 @@ def latest_step(base: str) -> Optional[int]:
 
 
 def restore_checkpoint(base: str, tree_like: Any, step: Optional[int] = None,
-                       device: Optional[str] = None
+                       device: Optional[str] = None, shardings: Any = None
                        ) -> Tuple[Any, int, Optional[int]]:
     """Restore into the structure of ``tree_like`` (each leaf cast to the
     like leaf's dtype) on ``device`` (default: the card).  Returns ``(tree,
-    step, data_step)``; ``step`` defaults to the newest committed one."""
+    step, data_step)``; ``step`` defaults to the newest committed one.
+
+    With ``shardings`` (a tree like ``tree_like`` of
+    :class:`~repro_torch.sharding.NamedSharding`, e.g. from
+    :func:`~repro_torch.sharding.rules.param_sharding`) each leaf becomes a
+    ``DTensor`` on its mesh (on the mesh's device type) with its spec's
+    placements: every rank reads the whole array and keeps its own shard,
+    with no communication.  This is the elastic restart: the manifest
+    knows no mesh, so the mesh may differ from the writer's."""
     if step is None:
         step = latest_step(base)
     if step is None:
@@ -115,6 +124,12 @@ def restore_checkpoint(base: str, tree_like: Any, step: Optional[int] = None,
         return t.to(device=dev, dtype=like.dtype)
 
     tree = tree_map_with_path(load, tree_like)
+    if shardings is not None:
+        from torch.distributed.tensor import distribute_tensor
+
+        tree = tree_map(lambda t, s: distribute_tensor(
+            t.to(s.mesh.device_type), s.mesh, s.placements,
+            src_data_rank=None), tree, shardings)
     return tree, manifest["step"], manifest.get("data_step")
 
 

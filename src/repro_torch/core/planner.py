@@ -28,7 +28,13 @@ predictor cache -- and emits plans through it:
   :func:`horizon_update_live` mirrors that decision on the host and
   finalizes columns whose probation expired (any finite horizon).
 
-Only the structured head layout is ported.
+Plans take the attention's head layout
+(:func:`repro_torch.models.attention.head_shard_mode`): structured ``(B,
+KV, G, ...)``, or under a mesh whose model axis only ``H`` divides, flat
+``(B, H, 1, ...)`` -- the structured plan with its head dims flattened, so
+both layouts plan alike on every device.  The predicted heads and the
+paged predictor cache (:meth:`PlanContext.encode_pred_qk`) keep the
+structured layout.
 """
 
 from __future__ import annotations
@@ -75,11 +81,9 @@ class PlanContext:
 
     @classmethod
     def for_config(cls, cfg, mode: Optional[str] = None) -> "PlanContext":
-        mode = mode or "structured"
-        if mode != "structured":
-            raise NotImplementedError(
-                f"head layout {mode!r}: the port runs on one card, where "
-                f"the reference also picks 'structured'")
+        if mode is None:
+            from repro_torch.models.attention import head_shard_mode
+            mode = head_shard_mode(cfg)
         scfg = cfg.spls
         if scfg.causal != cfg.causal:
             scfg = dataclasses.replace(scfg, causal=cfg.causal)
@@ -91,6 +95,29 @@ class PlanContext:
         wq = p["wq"].reshape(self.D, self.KV * self.G * self.Dh)
         wk = p["wk"].reshape(self.D, self.KV * self.Dh)
         return wq, wk
+
+    @property
+    def head_names(self) -> Tuple:
+        """Logical sharding axes of the plan's two head dims."""
+        return (("heads", None) if self.mode == "flat"
+                else ("kv_heads", "qgroups"))
+
+    def _in_layout(self, plan):
+        """A plan (a NamedTuple of the planner, or one tensor) in this
+        context's head layout.  Plans are computed in the structured
+        layout and a flat plan is that plan with ``(KV, G)`` flattened to
+        ``(H, 1)``: the flat layout's own PAM products would round
+        otherwise on the card and flip near-ties, so the two layouts could
+        plan differently for the same input."""
+        def one(t):
+            if t.dim() < 3 or tuple(t.shape[1:3]) != (self.KV, self.G):
+                return t
+            return t.reshape(t.shape[0], self.KV * self.G, 1, *t.shape[3:])
+        if self.mode != "flat":
+            return plan
+        if isinstance(plan, torch.Tensor):
+            return one(plan)
+        return type(plan)(*(one(t) for t in plan))
 
     def _layout(self, qp: torch.Tensor, kp: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -123,6 +150,9 @@ class PlanContext:
         K exactly (the log-domain projection is deterministic on the
         integer codes).
         """
+        if self.mode != "structured":
+            raise ValueError(f"head layout {self.mode!r}: the paged "
+                             f"predictor cache keeps the structured layout")
         scfg = self.scfg
         if scfg.quant_bits > 8:
             raise ValueError(
@@ -195,8 +225,9 @@ class PlanContext:
         k = topk_count(L, self.scfg.k_ratio)
         step = self.vote_block if votes_only else self.plan_block
         for i in range(nblk):
-            yield step(qh[..., i * rb:(i + 1) * rb, :], kh, k=k, row0=i * rb,
-                       n_valid_rows=min(rb, L - i * rb), n_cols=L)
+            yield self._in_layout(step(
+                qh[..., i * rb:(i + 1) * rb, :], kh, k=k, row0=i * rb,
+                n_valid_rows=min(rb, L - i * rb), n_cols=L))
 
     def plan_progressive(self, p: dict, xn: torch.Tensor,
                          row_block: Optional[int] = None) -> SparsityPlan:
@@ -232,11 +263,11 @@ class PlanContext:
         L = xn.shape[1]
         qh, kh = self.predict_heads(p, xn, act_axis=None)
         scfg = self.scfg
-        return chunked_plan_scan(
+        return self._in_layout(chunked_plan_scan(
             qh, kh, k_ratio=scfg.k_ratio, s_threshold=scfg.s_threshold,
             window=scfg.window, f_threshold=scfg.f_threshold,
             row_block=row_block or self.row_block_for(L),
-            causal=scfg.causal)
+            causal=scfg.causal))
 
     def exact_spa(self, p: dict, xn: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -277,10 +308,10 @@ class PlanContext:
             ffn_crit = torch.ones((B, L), dtype=torch.bool, device=xn.device)
             ffn_leader = torch.arange(L, dtype=torch.int32,
                                       device=xn.device).expand(B, L)
-        return SparsityPlan(attn_mask=mask & kv_keep[..., None, :],
-                            q_critical=sim.is_critical, q_leader=sim.leader,
-                            kv_keep=kv_keep, ffn_critical=ffn_crit,
-                            ffn_leader=ffn_leader)
+        return self._in_layout(SparsityPlan(
+            attn_mask=mask & kv_keep[..., None, :],
+            q_critical=sim.is_critical, q_leader=sim.leader,
+            kv_keep=kv_keep, ffn_critical=ffn_crit, ffn_leader=ffn_leader))
 
 
 # ---------------------------------------------------------------------------

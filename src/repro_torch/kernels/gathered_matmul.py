@@ -197,25 +197,26 @@ def gathered_matmul(x: torch.Tensor, w: torch.Tensor, perm: torch.Tensor,
 
 
 def gather_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``out[i] = src[idx[i]]``: src (C, F) float32, idx (M,) int32 ->
-    (M, F).  CPU tensors take the plain version; CUDA tensors launch the
-    kernel on the current stream, without synchronising."""
+    """``out[i] = src[idx[i]]``: src (C, F) of any dtype (the kernel copies
+    the rows' bytes), idx (M,) int32 -> (M, F) in src's dtype.  CPU
+    tensors take the plain version; CUDA tensors launch the kernel on the
+    current stream, without synchronising."""
     if torch.is_grad_enabled() and (src.requires_grad):
         _refuse_grad("gather_rows",
                      "compute backend 'packed_torch'")
     if not src.is_cuda and _on_cpu(src, "gather_rows"):
         return gather_rows_plain(src, idx)
     dev = src.get_device()
-    _check(src, "src", torch.float32, 2, dev)
+    _check(src, "src", src.dtype, 2, dev)
     _check(idx, "idx", torch.int32, 1, dev)
     C, F = src.shape
     M = idx.shape[0]
     if C == 0 or F == 0 or M == 0:
         raise ValueError("gather_rows needs non-empty src and idx")
     out = src.new_empty((M, F))       # cheaper than torch.empty(device=)
-    _launch(_fn("gather_rows", "gather_rows_f32", _GATHER_ARGS), dev,
+    _launch(_fn("gather_rows", "gather_rows_bytes", _GATHER_ARGS), dev,
             "gather_rows", src.data_ptr(), idx.data_ptr(), out.data_ptr(), C,
-            F, M)
+            F * src.element_size(), M)
     gather_rows.launches += 1
     return out
 

@@ -35,7 +35,18 @@ from .gathered_matmul import (H100_SMS, _check, _fn, _launch, _on_cpu,
                              _refuse_grad)
 
 __all__ = ["paged_flash_decode", "paged_decode_plain", "paged_split_count",
-           "paged_split_ranges"]
+           "paged_split_ranges", "NULL_PAGE"]
+
+
+def __getattr__(name: str):
+    # NULL_PAGE is the page pool's (serving/pager.py), exported here as the
+    # reference's kernel module exports it; read on first use, because the
+    # serving package imports the kernels
+    if name == "NULL_PAGE":
+        from repro_torch.serving.pager import NULL_PAGE
+        return NULL_PAGE
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

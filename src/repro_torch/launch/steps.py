@@ -10,9 +10,11 @@ the forward and backward under :func:`repro_torch.device.route_as`
 on whatever device the tensors are.  A configuration that names a kernel
 backend trains into that kernel's wrapper, which raises.
 
-The reference's sharding seams (``constrain`` on activations,
-``axis_rules`` around the jitted step) bind logical axes to a device
-mesh; one card has no mesh, so they have no counterpart here.
+The reference's sharding seams bind logical axes to a device mesh:
+``axis_rules`` around the step is installed here by
+:class:`~repro_torch.runtime.trainer.Trainer` given a mesh, and picks the
+attention's head layout; ``constrain`` on activations has no counterpart,
+since the step's tensors are plain ones, one global view.
 """
 
 from __future__ import annotations

@@ -54,7 +54,9 @@ with ``q: (B, KV, G, Dh)``, ``k/v_pages: (KV, N, ps, Dh)``, ``pos_pages:
 The reference package's names are aliases (``xla_dense``,
 ``xla_packed``, ``xla_chunked``, ``pallas_flash``, ``xla_dense_decode``,
 ``pallas_flash_decode``, ``xla_paged_decode``, ``pallas_paged_decode``),
-so one ``ServeConfig`` drives both packages.
+so one ``ServeConfig`` drives both packages.  :func:`register_backend`
+adds a backend to a site, as the reference's does, and
+:func:`available_backends` lists them.
 
 ``"auto"`` resolves by the device of the tensors: the kernel on the card,
 its plain version on the CPU, at every site -- except that the forward
@@ -89,7 +91,7 @@ the kernel, whose wrapper refuses inputs that need a gradient.
 from __future__ import annotations
 
 import warnings
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -109,8 +111,9 @@ from repro_torch.kernels import (flash_attention, flash_attention_plain,
 from .common import softcap as _softcap
 
 __all__ = ["AUTO", "CHUNK_THRESHOLD", "FORWARD_BACKENDS", "DECODE_BACKENDS",
-           "PAGED_DECODE_BACKENDS", "PALLAS_BLOCK_Q", "resolve_backend",
-           "resolve_paged_backend", "get_backend", "site_backend"]
+           "PAGED_DECODE_BACKENDS", "PALLAS_BLOCK_Q", "register_backend",
+           "available_backends", "resolve_backend", "resolve_paged_backend",
+           "get_backend", "site_backend"]
 
 AUTO = "auto"
 KV_CHUNK = 2048
@@ -322,6 +325,38 @@ _SITES = {"forward": FORWARD_BACKENDS, "decode": DECODE_BACKENDS,
 _AUTO = {"forward": ("cuda_flash", "torch_flash"),
          "decode": ("cuda_flash_decode", "torch_flash_decode"),
          "paged_decode": ("cuda_paged_decode", "torch_paged_decode")}
+
+
+def _site_key(decode: bool, paged: bool) -> str:
+    return ("paged_decode" if paged else "decode") if decode else "forward"
+
+
+def register_backend(name: str, decode: bool = False, paged: bool = False,
+                     doc: str = "") -> Callable:
+    """Decorator registering ``fn`` under ``name`` at the forward site, or
+    with ``decode`` at the decode site (``paged`` too: the paged-decode
+    site), with the signature of that site (module docstring); the name
+    then resolves through :func:`get_backend` and :func:`resolve_backend`
+    like a built-in one.  A ``doc`` becomes ``fn``'s docstring."""
+
+    def deco(fn: Callable) -> Callable:
+        _SITES[_site_key(decode, paged)][name] = fn
+        fn.__doc__ = doc or fn.__doc__
+        return fn
+
+    return deco
+
+
+def available_backends(decode: Optional[bool] = None,
+                       paged: Optional[bool] = None) -> Tuple[str, ...]:
+    """Registered backend names, optionally filtered by decode / paged-ness
+    (a paged backend is a decode backend, as in the reference)."""
+    names = []
+    for site, reg in _SITES.items():
+        d, pg = site != "forward", site == "paged_decode"
+        if (decode is None or d == decode) and (paged is None or pg == paged):
+            names.extend(reg)
+    return tuple(sorted(names))
 
 
 def _canonical(name: str) -> str:

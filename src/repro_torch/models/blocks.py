@@ -31,8 +31,8 @@ from repro_torch.sparse_compute.backend import (is_packed,
                                                 resolve_compute_backend)
 from repro_torch.sparse_compute.packed import packed_mlp
 
-from .attention import (attention_decode, attention_forward, init_attention,
-                        init_kv_cache)
+from .attention import (attention_decode, attention_forward,
+                        head_shard_mode, init_attention, init_kv_cache)
 from .common import rms_norm
 from .mamba import (init_mamba, init_mamba_cache, mamba_decode,
                     mamba_forward)
@@ -100,12 +100,15 @@ def block_forward(cfg, blk, p: dict, x: torch.Tensor,
     xn = rms_norm(x, p["ln1"], cfg.norm_eps)
     plan, cache = None, None
     if blk.mixer == "attn":
-        if plan_mode == "progressive":
-            plan = build_block_plan_progressive(cfg, p, xn)
-        elif cfg.spls.enabled and x.shape[1] >= _SPLS_CHUNK_THRESHOLD:
-            plan = build_block_plan_chunked(cfg, p, xn)
-        else:
-            plan = build_block_plan(cfg, p, xn)
+        # the padded head layout runs dense, as in the reference: a plan
+        # over padded heads would count their garbage votes
+        if head_shard_mode(cfg) != "padded":
+            if plan_mode == "progressive":
+                plan = build_block_plan_progressive(cfg, p, xn)
+            elif cfg.spls.enabled and x.shape[1] >= _SPLS_CHUNK_THRESHOLD:
+                plan = build_block_plan_chunked(cfg, p, xn)
+            else:
+                plan = build_block_plan(cfg, p, xn)
         qc, kc = _capacities(cfg, x.shape[1]) if plan is not None \
             else (None, None)
         h = attention_forward(cfg, p["attn"], xn, window=blk.window,

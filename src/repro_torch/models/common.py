@@ -12,8 +12,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-__all__ = ["dtype_of", "rms_norm", "rope_freqs", "apply_rope", "dense_init",
-           "softcap", "Activations"]
+__all__ = ["dtype_of", "rms_norm", "layer_norm", "rope_freqs", "apply_rope",
+           "dense_init", "softcap", "Activations"]
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -28,6 +28,17 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     var = x.square().mean(-1, keepdim=True)
     out = x * torch.rsqrt(var + eps)
     return (out * (1.0 + scale.to(torch.float32))).to(dt)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    x = x.to(torch.float32)
+    mu = x.mean(-1, keepdim=True)
+    var = (x - mu).square().mean(-1, keepdim=True)
+    out = (x - mu) * torch.rsqrt(var + eps)
+    return (out * scale.to(torch.float32)
+            + bias.to(torch.float32)).to(dt)
 
 
 def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:

@@ -35,9 +35,9 @@ from .blocks import (block_decode, block_forward, init_block,
                      init_block_cache)
 from .common import dense_init, dtype_of, rms_norm, softcap
 
-__all__ = ["init_block", "init_params", "abstract_params", "embed_inputs",
-           "head_logits", "period_params", "forward", "loss_fn", "init_cache",
-           "decode_step", "prefill"]
+__all__ = ["init_block", "init_params", "abstract_params", "abstract_cache",
+           "embed_inputs", "head_logits", "period_params", "forward",
+           "loss_fn", "init_cache", "decode_step", "prefill"]
 
 Params = Dict[str, Any]
 
@@ -99,6 +99,12 @@ def abstract_params(cfg) -> Params:
     every leaf's shape and dtype, no storage (the reference's
     ``jax.eval_shape(init_params)``)."""
     return init_params(cfg, device="meta")
+
+
+def abstract_cache(cfg, batch: int, max_len: int) -> tuple:
+    """The decode cache of :func:`init_cache` on the ``meta`` device (the
+    reference's ``jax.eval_shape(init_cache)``)."""
+    return init_cache(cfg, batch, max_len, device="meta")
 
 
 def embed_inputs(cfg, params: Params, inputs: torch.Tensor) -> torch.Tensor:

@@ -5,9 +5,9 @@ from .adamw import (AdamWConfig, OptState, adamw_init, adamw_update,
                     clip_by_global_norm, global_norm)
 from .schedules import constant, warmup_cosine
 from .grad_compress import (CompressionState, compress, compress_init,
-                            decompress)
+                            compressed_mean, decompress)
 
 __all__ = ["AdamWConfig", "OptState", "adamw_init", "adamw_update",
            "clip_by_global_norm", "global_norm", "constant",
            "warmup_cosine", "CompressionState", "compress", "compress_init",
-           "decompress"]
+           "compressed_mean", "decompress"]

@@ -1,10 +1,13 @@
-"""Int8 block-quantized gradients with error feedback -- the numerics of
-the reference's ``repro.optim.grad_compress`` (blocks of 256, one float32
-scale a block, ``max|x| / 127`` floored at 1e-12, round half to even).
+"""Int8 block-quantized gradients with error feedback for the data-
+parallel all-reduce -- the reference's ``repro.optim.grad_compress``
+(blocks of 256, one float32 scale a block, ``max|x| / 127`` floored at
+1e-12, round half to even).
 
-The reference's ``compressed_mean`` reduces the codes over a mesh axis
-(``lax.psum`` inside ``shard_map``); it waits for the mesh-bound layers
-(ROADMAP.md, Queue A, plan item 13) and is not ported.
+:func:`compressed_mean` is the reference's ``lax.psum`` mean over a mesh
+axis as a ``torch.distributed.all_reduce`` over a process group: each rank
+quantizes its gradient (plus its residual), the dequantized codes are
+summed over the group and divided by its size, and the rounding error
+stays behind as the rank's new residual.
 """
 
 from __future__ import annotations
@@ -12,11 +15,13 @@ from __future__ import annotations
 from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.tree import tree_map
 
-__all__ = ["CompressionState", "compress_init", "compress", "decompress"]
+__all__ = ["CompressionState", "compress_init", "compress", "decompress",
+           "compressed_mean"]
 
 _BLOCK = 256  # quantization block (per-block scale)
 
@@ -57,3 +62,18 @@ def decompress(q: torch.Tensor, scale: torch.Tensor, shape) -> torch.Tensor:
     for s in shape:
         size *= s
     return (q.float() * scale).reshape(-1)[:size].reshape(tuple(shape))
+
+
+def compressed_mean(g: torch.Tensor, group=None,
+                    residual: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Error-feedback int8 mean of ``g`` over ``group`` (default: the
+    world; a mesh axis's group is ``mesh.get_group(axis)``).  Returns
+    ``(mean float32 grad, new residual)``.  The codes are widened to
+    float32 times their scales before the sum (int8 sums would overflow),
+    as the reference's ``psum`` does; without a process group it raises."""
+    q, scale, new_res = compress(g, residual)
+    summed = q.float() * scale
+    dist.all_reduce(summed, op=dist.ReduceOp.SUM, group=group)
+    n = dist.get_world_size(group)
+    return (summed / n).reshape(-1)[:g.numel()].reshape(g.shape), new_res

@@ -6,9 +6,11 @@ The protocol at cluster scale:
      usable mesh from surviving hosts (:func:`plan_elastic_mesh`);
   2. every survivor restores the last committed checkpoint onto the *new*
      mesh -- the manifest is mesh-agnostic, so only the placement of the
-     restored leaves differs (on one card: ``restore_checkpoint(...,
-     device=...)``; the sharded restore waits for the mesh-bound layers,
-     ROADMAP.md plan item 13);
+     restored leaves differs: ``restore_checkpoint(..., shardings=
+     param_sharding(cfg, new_mesh, abstract_params(cfg)))`` gives each
+     leaf as a ``DTensor`` on the new mesh, and ``Trainer(...,
+     mesh=new_mesh)`` trains on from that state (it gathers the leaves to
+     full tensors when it starts: the port's step runs on plain tensors);
   3. the data pipeline resumes from the stored data step, with the global
      batch kept constant (per-host batch grows) or rescaled by policy.
 

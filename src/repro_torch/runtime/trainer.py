@@ -1,9 +1,17 @@
 """The training loop: checkpoint/restart, failure healing and straggler
 tracking -- the reference's ``repro.runtime.trainer`` on one device.
 
-``device`` (default: the card) takes the place of the reference's mesh.
-A step's time is the card's: the loop synchronizes the device before it
-reads the clock at the end of a step, so ``step_time_s`` and the
+``device`` (default: the card) holds the state.  With a ``mesh``, every
+step runs under ``axis_rules(activation_rules(mesh), mesh)``, as the
+reference's does: the mesh's model axis picks the attention's head layout
+(:func:`repro_torch.models.attention.head_shard_mode`), and the tensors
+stay plain ones, one global view on every rank, so on a 1 x 1 mesh a step
+equals the step without one.  State given as ``DTensor`` leaves, as
+``restore_checkpoint(..., shardings=)`` restores it onto a mesh, is
+gathered to full tensors on ``device`` when :meth:`Trainer.run` starts:
+the step works on plain tensors.  A step's
+time is the card's: the loop synchronizes the device before it reads the
+clock at the end of a step, so ``step_time_s`` and the
 :class:`~repro_torch.runtime.fault_tolerance.StragglerDetector` measure the
 step's work, not only its launch.
 """
@@ -24,6 +32,9 @@ from repro_torch.launch.steps import make_train_step
 from repro_torch.models import init_params
 from repro_torch.optim import AdamWConfig, adamw_init
 from repro_torch.optim.schedules import warmup_cosine
+from repro_torch.sharding.logical import axis_rules
+from repro_torch.sharding.rules import activation_rules
+from repro_torch.tree import tree_map
 
 from .fault_tolerance import (FailureSimulator, Heartbeat, StragglerDetector,
                               retry_with_backoff)
@@ -50,11 +61,12 @@ class Trainer:
 
     def __init__(self, cfg, tcfg: TrainerConfig, data_cfg: DataConfig,
                  device: Optional[str] = None,
-                 failure_sim: Optional[FailureSimulator] = None):
+                 failure_sim: Optional[FailureSimulator] = None, mesh=None):
         self.cfg = cfg
         self.tcfg = tcfg
         self.data_cfg = data_cfg
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.failure_sim = failure_sim
         self.heartbeat = Heartbeat(timeout_s=300.0)
         self.stragglers = StragglerDetector()
@@ -104,8 +116,16 @@ class Trainer:
     def run(self, host: str = "host0") -> Dict[str, Any]:
         """Run to ``total_steps``, healing injected failures by restoring
         the last checkpoint."""
+        if self.mesh is None:
+            return self._run(host)
+        with axis_rules(activation_rules(self.mesh), self.mesh):
+            return self._run(host)
+
+    def _run(self, host: str) -> Dict[str, Any]:
         if self.params is None:
             self.restore_or_init()
+        self.params, self.opt_state = _gathered(
+            (self.params, self.opt_state), self.device)
         while self.step < self.tcfg.total_steps:
             try:
                 t0 = time.monotonic()
@@ -141,6 +161,16 @@ class Trainer:
                 raise
         self.save()
         return {"final_step": self.step, "metrics": self.metrics_log}
+
+
+def _gathered(tree, device: torch.device):
+    """``tree`` with each ``DTensor`` leaf replaced by its full tensor on
+    ``device`` (an all-gather over the leaf's mesh); other leaves as they
+    are."""
+    from torch.distributed.tensor import DTensor
+
+    return tree_map(lambda t: t.full_tensor().to(device)
+                    if isinstance(t, DTensor) else t, tree)
 
 
 def train_loop(cfg, tcfg: TrainerConfig, data_cfg: DataConfig,

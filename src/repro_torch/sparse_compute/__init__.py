@@ -14,13 +14,13 @@
 from .accounting import chunk_flops, saved_pct
 from .backend import (AUTO, DENSE, available_compute_backends,
                       get_compute_backend, is_packed,
-                      resolve_compute_backend)
+                      register_compute_backend, resolve_compute_backend)
 from .capacity import CapacityController
 from .packed import packed_mlp, packed_project_kv, packed_project_q
 
 __all__ = [
     "AUTO", "DENSE", "available_compute_backends", "get_compute_backend",
-    "is_packed", "resolve_compute_backend", "CapacityController",
-    "packed_mlp", "packed_project_kv", "packed_project_q", "chunk_flops",
-    "saved_pct",
+    "is_packed", "register_compute_backend", "resolve_compute_backend",
+    "CapacityController", "packed_mlp", "packed_project_kv",
+    "packed_project_q", "chunk_flops", "saved_pct",
 ]

@@ -39,7 +39,7 @@ from repro_torch.device import route_platform
 from repro_torch.kernels import (gather_rows, gather_rows_plain,
                                  gathered_matmul, gathered_matmul_plain)
 
-__all__ = ["AUTO", "DENSE", "get_compute_backend",
+__all__ = ["AUTO", "DENSE", "register_compute_backend", "get_compute_backend",
            "available_compute_backends", "resolve_compute_backend",
            "is_packed"]
 
@@ -69,13 +69,6 @@ def _cuda_gathered_matmul(x, w, perm, src_slot=None):
     return gathered_matmul(x.float(), w.float(), perm, src_slot)
 
 
-def _cuda_gather_rows(rows: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    # a copy: float32 through the kernel, back in the rows' own type, as
-    # for the other float32 kernels; for bf16 rows the two casts move more
-    # bytes than the copy (a copy by element size is ROADMAP work)
-    return gather_rows(rows.float(), idx).to(rows.dtype)
-
-
 _REGISTRY: Dict[str, _ComputeBackend] = {
     DENSE: _ComputeBackend(
         _dense_gathered_matmul, _torch_gather_rows,
@@ -84,9 +77,17 @@ _REGISTRY: Dict[str, _ComputeBackend] = {
         gathered_matmul_plain, gather_rows_plain,
         "the kernels' plain versions: gather -> reduced matmul -> gather"),
     "packed_cuda": _ComputeBackend(
-        _cuda_gathered_matmul, _cuda_gather_rows,
+        _cuda_gathered_matmul, gather_rows,
         "CUDA gathered matmul (gather fused into tile loads) + row gather"),
 }
+
+
+def register_compute_backend(name: str, gathered_matmul: Callable,
+                             gather_rows: Callable, doc: str = "") -> None:
+    """Register the two primitives (module docstring) under ``name``; it
+    then resolves through :func:`resolve_compute_backend` as a non-packed
+    backend, as in the reference."""
+    _REGISTRY[name] = _ComputeBackend(gathered_matmul, gather_rows, doc)
 
 
 def available_compute_backends() -> Tuple[str, ...]:

@@ -4,6 +4,7 @@ weights, and numpy inputs from a seed.  JAX stays on the CPU."""
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import jax
@@ -208,3 +209,27 @@ def feed_reference_plans(monkeypatch, plans: list) -> None:
                         jax.tree.map(lambda a: jnp.asarray(n(a)),
                                      next(feed)))
     monkeypatch.setattr(jax.lax, "scan", unrolled_scan)
+
+
+@contextlib.contextmanager
+def fake_world(world: int):
+    """The default process group over the ``fake`` backend at ``world``
+    ranks in this one process (rank 0), destroyed on exit so no later test
+    sees it."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", rank=0, world_size=world,
+                            store=FakeStore())
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_stand_in(shape, axes):
+    """What the reference's sharding rules read of a ``jax.sharding.Mesh``
+    (``axis_names``, ``devices.shape``), without its devices."""
+    import types
+    return types.SimpleNamespace(axis_names=tuple(axes),
+                                 devices=np.empty(shape, dtype=object))
