@@ -144,6 +144,21 @@ and nothing falls back to the CPU):
    ``shardings=`` (bit-equal to a plain restore) and a ``Trainer(mesh=)``
    step equal to the step without a mesh.  ``gather_rows`` is also checked
    and timed in bf16 (bit-equal, beside bf16 ``index_select``).
+10. The dry run, path (aa) (``repro_torch.launch.dryrun``: a step on
+   ``DTensor``s over fake local shards, counted by ``op_analysis``):
+   (aa.1) ``python -m repro_torch.launch.dryrun --arch qwen3-0.6b --shape
+   decode_32k`` on 16 x 16, whose argument bytes per device must equal
+   path (y)'s parameter and cache bytes plus the tokens' and positions';
+   (aa.2) in a subprocess, qwen3-0.6b's prefill (B 2 x L 4096) and decode
+   step (B 8 against a 4096-token cache) dry-run on a one-rank mesh and
+   then run on the card under the dry run's routes: argument bytes and
+   dot FLOPs (``FlopCounterMode``) equal exactly, the predicted peak
+   within 25 % of the card's; then both steps through B4 / B5, timed
+   beside the dry run's roofline, their logits held against B4's and B5's
+   plain versions on the same inputs (the decode cache from a prefill);
+   (aa.3) the dry run of path (p)'s step
+   beside (p)'s peak and step time.  (aa.1) and (aa.3) use the host only
+   and start before path (p).
 
 The last lines are the ``{"kernels": [...]}`` line, the card's
 ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
@@ -937,6 +952,10 @@ def check_flash_decode(K, gen) -> dict:
              ("bf16", dict(G=1, pos=path_pos(), dtype=torch.bfloat16), {}),
              ("bf16_gqa_g16", dict(G=16, pos=path_pos(), KV=32,
                                    dtype=torch.bfloat16), dict(window=100)),
+             # path (aa)'s decode step: qwen3-0.6b's heads over a full
+             # 4096-slot cache, bf16
+             ("bf16_qwen3_S_4096", dict(G=2, pos=[4095] * 8, KV=16, S=4096,
+                                        Dh=128, dtype=torch.bfloat16), {}),
              # gemma2's local block in bf16: G 2, Dh 128, window, softcap
              ("bf16_gqa_g2_window_softcap", dict(G=2, pos=path_pos(),
                                                  Dh=128, q_scale=4.0,
@@ -2150,9 +2169,10 @@ def qwen3_train(K) -> dict:
     4 steps with a checkpoint at step 2; a fresh ``Trainer`` restored from
     step 2 runs steps 3-4, held against the uninterrupted run.  No kernel
     may launch while training.  Then the trained weights serve through B4
-    / B5 (:func:`_serve_trained`).  Returns the serve tail's launches and
-    the median step time, and the directory that holds the restored run's
-    checkpoints (``b``, steps 2 and 4), which the caller removes."""
+    / B5 (:func:`_serve_trained`).  Returns the serve tail's launches, the
+    median step time, the directory that holds the restored run's
+    checkpoints (``b``, steps 2 and 4), which the caller removes, and the
+    run's peak device bytes."""
     import shutil
     import tempfile
 
@@ -2263,7 +2283,7 @@ def qwen3_train(K) -> dict:
     launches = _serve_trained(K, cfg, a.params, prompts, 8)
     del a
     _free()
-    return launches, dt, tmp
+    return launches, dt, tmp, row["peak_device_bytes"]
 
 
 class _Plans:
@@ -3188,9 +3208,10 @@ def production_specs_table() -> None:
     print(json.dumps({"production_specs": rows}))
 
 
-def production_specs() -> None:
+def production_specs() -> list:
     """Path (y): :func:`production_specs_table` in a subprocess, which
-    keeps the ``fake`` default process group out of the other phases."""
+    keeps the ``fake`` default process group out of the other phases.
+    Returns the table's rows."""
     root = Path(__file__).resolve().parent
     out = subprocess.run(
         [sys.executable, "-c", "import chip_smoke as c; "
@@ -3199,7 +3220,252 @@ def production_specs() -> None:
     if out.returncode:
         _fail(f"production_specs: exit {out.returncode}: "
               f"{out.stderr[-2000:]}")
-    print(out.stdout.strip().splitlines()[-1])
+    line = out.stdout.strip().splitlines()[-1]
+    print(line)
+    return json.loads(line)["production_specs"]
+
+
+# path (aa)'s cells on one card: qwen3-0.6b at full width, published dtypes
+AA_CELLS = (("prefill", 4096, 2), ("decode", 4096, 8))
+
+
+def _aa_inputs(cfg, kind: str, L: int, B: int, gen) -> tuple:
+    """A step's inputs on the card: random weights from the seed, random
+    tokens; a decode step's cache is the prefill of its first L - 1
+    tokens (through B4), so that B5 reads the model's own keys, and every
+    row writes slot L - 1 with the last token."""
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import init_params
+
+    params = init_params(cfg, seed=SEED)
+    toks = torch.randint(0, cfg.vocab_size, (B, L), generator=gen,
+                         dtype=torch.int32, device="cuda")
+    if kind == "prefill":
+        return params, toks
+    _, cache = make_prefill_step(cfg, "pallas_flash")(params, toks[:, :-1], L)
+    return (params, cache, toks[:, -1:].contiguous(),
+            torch.full((B,), L - 1, dtype=torch.int32, device="cuda"))
+
+
+def dryrun_vs_card_body() -> None:
+    """The body of path (aa.2), run in a process of its own: the dry run of
+    qwen3-0.6b's prefill (B 2 x L 4096) and decode step (B 8 against a
+    4096-token cache) on a one-rank mesh (a ``fake`` group of one rank,
+    destroyed after), then the same steps for real on the card under the
+    dry run's routes (``route_as("cpu")``): the real inputs' bytes must
+    equal the dry run's argument bytes and ``FlopCounterMode``'s count of
+    the real step its ``dot_flops``, exactly; the predicted peak (argument
+    plus temp bytes) must lie within 25 % of the bytes allocated at the
+    step's peak above those allocated before its inputs were made.  Then
+    the same steps through the kernels (``cuda_flash`` B4,
+    ``cuda_flash_decode`` B5), timed beside the dry run's roofline terms,
+    and their logits held against the same steps through the kernels'
+    plain versions (``torch_flash`` / ``torch_flash_decode``) on the same
+    inputs: 1 bf16 ulp of max |plain| after the prefill, 4 after the decode
+    step from the prefill's cache (:func:`_bf16_logits`' tolerances).  A control, reported beside
+    each tolerance, runs the kernels with a fault: the prefill with the
+    causal mask dropped, the decode step on a zeroed cache.  Prints one
+    JSON line with the launches."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch import kernels as K
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.configs.registry import get_config
+    from repro_torch.device import resolve_device, route_as
+    from repro_torch.launch.dryrun import (HBM_BW, PEAK_FLOPS,
+                                           analyze_step, fake_group)
+    from repro_torch.launch.mesh import make_cpu_mesh
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.tree import leaves, tree_map
+
+    resolve_device()
+    cfg = get_config("qwen3-0.6b")
+    with fake_group(1):
+        mesh = make_cpu_mesh(1, 1)
+        dry = {kind: analyze_step(cfg, ShapeCfg(f"aa_{kind}", L, B, kind),
+                                  mesh) for kind, L, B in AA_CELLS}
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows, launches, bad = [], {}, []
+    for kind, L, B in AA_CELLS:
+        d = dry[kind]
+        mem, stats = d["memory"], d["stats"]
+        _free()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        args = _aa_inputs(cfg, kind, L, B, gen)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        arg_bytes = sum(t.numel() * t.element_size() for t in leaves(args)
+                        if isinstance(t, torch.Tensor))
+        plain = (make_prefill_step(cfg) if kind == "prefill"
+                 else make_serve_step(cfg))
+        with route_as("cpu"), FlopCounterMode(display=False) as fc:
+            out = plain(*args)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        del out
+        predicted = mem["argument_bytes_per_device"] + \
+            mem["temp_bytes_per_device"]
+        # the kernels' plain versions; then the kernels: warmed once, then
+        # one timed call, whose logits are held against the plain ones
+        make = make_prefill_step if kind == "prefill" else make_serve_step
+        names = (("torch_flash", "pallas_flash") if kind == "prefill"
+                 else ("torch_flash_decode", "pallas_flash_decode"))
+        ref = make(cfg, names[0])(*args)[0]
+        fast = make(cfg, names[1])
+        fast(*args)
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = fast(*args)[0]
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        n = K.launch_counts()
+        if kind == "prefill":
+            control_name = "control_causal_dropped"
+            control = make(dataclasses.replace(cfg, causal=False),
+                           names[1])(*args)[0]
+        else:
+            control_name = "control_cache_zeroed"
+            control = fast(args[0], tree_map(torch.zeros_like, args[1]),
+                           *args[2:])[0]
+        kernel = "flash_attention" if kind == "prefill" else "flash_decode"
+        launches[kernel] = n[kernel]
+        roof = {"compute_s": stats["dot_flops"] / PEAK_FLOPS,
+                "memory_s": stats["traffic_bytes"] / HBM_BW}
+        row = {"dryrun_vs_card": f"qwen3-0.6b {kind} B {B} x L {L}",
+               "argument_bytes_dry": mem["argument_bytes_per_device"],
+               "argument_bytes_card": arg_bytes,
+               "dot_flops_dry": stats["dot_flops"],
+               "flop_counter_card": float(fc.get_total_flops()),
+               "temp_bytes_dry": mem["temp_bytes_per_device"],
+               "peak_bytes_predicted": predicted,
+               "peak_bytes_card": peak,
+               "peak_ratio": predicted / peak,
+               "kernel_step_s": step_s, "kernel_launches": n,
+               "roofline_dry": roof,
+               "step_over_roofline": step_s / max(roof.values()),
+               "trace_s": d["trace_s"], "device": _smi()}
+        try:
+            _hold_logits(f"dryrun_vs_card {kind}", "logits", got, ref,
+                         1 if kind == "prefill" else 4, row, control,
+                         control_name)
+        except SystemExit as e:
+            bad.append(str(e))
+        del ref, got, control
+        rows.append(row)
+        print(json.dumps(row))
+        if arg_bytes != mem["argument_bytes_per_device"]:
+            bad.append(f"{kind}: argument bytes {arg_bytes} on the card, "
+                       f"{mem['argument_bytes_per_device']} dry")
+        if row["flop_counter_card"] != stats["dot_flops"]:
+            bad.append(f"{kind}: dot FLOPs {row['flop_counter_card']} on "
+                       f"the card, {stats['dot_flops']} dry")
+        if abs(predicted - peak) > 0.25 * peak:
+            bad.append(f"{kind}: predicted peak {predicted} bytes, the "
+                       f"card's {peak}")
+        if not n[kernel]:
+            bad.append(f"{kind}: {kernel} was not launched")
+        del args
+    print(json.dumps({"dryrun_vs_card_launches": launches}))
+    if bad:
+        raise SystemExit(f"dryrun_vs_card: {bad}")
+
+
+def _aa_subprocess(code: str):
+    root = Path(__file__).resolve().parent
+    return subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke as c; "
+         "c.sys.path.insert(0, 'src'); " + code], cwd=root,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def start_host_dryruns() -> dict:
+    """Path (aa)'s two runs that use the host only, started early so
+    they overlap the card's training phases: (aa.1) ``python -m
+    repro_torch.launch.dryrun --arch qwen3-0.6b --shape decode_32k`` and
+    (aa.3) :func:`dryrun_p_step`.  :func:`dryrun_vs_card` reads them."""
+    return {
+        "aa1": subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             "qwen3-0.6b", "--shape", "decode_32k"],
+            cwd=Path(__file__).resolve().parent,
+            env=dict(os.environ, PYTHONPATH="src"), stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True),
+        "aa3": _aa_subprocess("c.dryrun_p_step()")}
+
+
+def _aa_wait(name: str, proc, timeout: int) -> list:
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        _fail(f"{name}: no result in {timeout} s")
+    if proc.returncode:
+        _fail(f"{name}: exit {proc.returncode}: {out[-1500:]} "
+              f"{err[-2500:]}")
+    return out.strip().splitlines()
+
+
+def dryrun_p_step() -> None:
+    """The body of path (aa.3): the dry run of path (p)'s own step
+    (qwen3-0.6b, 1 x 1 mesh, B 8 x 4096, 8 microbatches of one row,
+    remat), printed as one JSON line."""
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.dryrun import analyze_step, fake_group
+    from repro_torch.launch.mesh import make_cpu_mesh
+
+    with fake_group(1):
+        a = analyze_step(get_config("qwen3-0.6b"),
+                         ShapeCfg("p", 4096, 8, "train"), make_cpu_mesh(1, 1),
+                         n_micro=1)
+    print(json.dumps(a))
+
+
+def dryrun_vs_card(specs: list, p_step_s: float, p_peak: int,
+                   host: dict) -> dict:
+    """Path (aa): (aa.1) ``python -m repro_torch.launch.dryrun --arch
+    qwen3-0.6b --shape decode_32k`` on 16 x 16, whose argument bytes must
+    equal path (y)'s qwen3 parameter and ``decode_32k`` cache bytes plus
+    the tokens' and positions' local bytes; (aa.2)
+    :func:`dryrun_vs_card_body` in a subprocess; (aa.3) the dry run of path
+    (p)'s step (:func:`dryrun_p_step`) beside (p)'s measured peak and step
+    time.  ``host`` holds (aa.1) and (aa.3), started by
+    :func:`start_host_dryruns`.  Returns (aa.2)'s launches."""
+    from repro_torch.launch.dryrun import HBM_BW, PEAK_FLOPS
+
+    a1, a3 = host["aa1"], host["aa3"]
+    lines2 = _aa_wait("dryrun_vs_card", _aa_subprocess(
+        "c.dryrun_vs_card_body()"), 300)
+    for ln in lines2[:-1]:
+        print(ln)
+    launches = json.loads(lines2[-1])["dryrun_vs_card_launches"]
+
+    res = json.loads("\n".join(_aa_wait("dryrun qwen3-0.6b decode_32k", a1,
+                                         300)))
+    row = next(r for r in specs
+               if r["arch"] == "qwen3-0.6b" and r["mesh"] == "16x16")
+    B = 128 // 16                      # decode_32k's batch over the data axis
+    expected = (row["params_bytes_per_device"]
+                + row["decode_32k_cache_bytes_per_device"] + B * 4 + B * 4)
+    got = res["memory"]["argument_bytes_per_device"]
+    print(json.dumps({"dryrun_decode_32k": res, "path_y_bytes": expected}))
+    if got != expected:
+        _fail(f"dryrun qwen3-0.6b decode_32k: argument bytes {got}, path "
+              f"(y) gives {expected}")
+
+    p = json.loads(_aa_wait("dryrun of path (p)", a3, 300)[-1])
+    roof = {"compute_s": p["stats"]["dot_flops"] / PEAK_FLOPS,
+            "memory_s": p["stats"]["traffic_bytes"] / HBM_BW}
+    peak = p["memory"]["argument_bytes_per_device"] + \
+        p["memory"]["temp_bytes_per_device"]
+    print(json.dumps({"dryrun_path_p": p, "peak_bytes_predicted": peak,
+                      "peak_bytes_p": p_peak, "peak_ratio": peak / p_peak,
+                      "roofline": roof, "step_s_p": p_step_s,
+                      "step_over_roofline": p_step_s / max(roof.values())}))
+    return {"dryrun_vs_card": launches}
 
 
 def sharded_restore_body(ckpt: str) -> None:
@@ -3566,6 +3832,17 @@ def main() -> int:
             if "C7517" in ln or "Performance Loss" in ln:
                 print(f"  {name}: {ln.strip()}")
 
+    host = {}
+    try:
+        return _phases(K, ptxas, smi, host)
+    finally:
+        for proc in host.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+
+
+def _phases(K, ptxas: dict, smi: str, host: dict) -> int:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = [check_gathered_matmul(K, gen), check_gather_rows(K, gen),
             check_paged_decode(K, gen), check_flash_attention(K, gen),
@@ -3576,8 +3853,11 @@ def main() -> int:
     paths["noncausal_exact_forward"], report_d = exact_forward(K)
     serve_bf16(K)
     paths.update(families(K))
+    # path (aa)'s host-only dry runs overlap the training phases, after the
+    # serve paths whose walls the host's load would move
+    host.update(start_host_dryruns())
     t0 = time.perf_counter()
-    paths["qwen3_train"], dense_step_s, ckpt = qwen3_train(K)
+    paths["qwen3_train"], dense_step_s, ckpt, p_peak = qwen3_train(K)
     print(json.dumps({"phase_s": "qwen3_train",
                       "s": time.perf_counter() - t0}))
     t0 = time.perf_counter()
@@ -3616,8 +3896,12 @@ def main() -> int:
         paths.update(phase(K))
         print(json.dumps({"phase_s": name, "s": time.perf_counter() - t0}))
     t0 = time.perf_counter()
-    production_specs()
+    specs = production_specs()
     print(json.dumps({"phase_s": "production_specs",
+                      "s": time.perf_counter() - t0}))
+    t0 = time.perf_counter()
+    paths.update(dryrun_vs_card(specs, dense_step_s, p_peak, host))
+    print(json.dumps({"phase_s": "dryrun_vs_card",
                       "s": time.perf_counter() - t0}))
     for row in rows:
         row["ptxas"] = ptxas[Path(row["source"]).stem]

@@ -46,7 +46,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .predict import predict_qk, predict_qk_pre
+from repro_torch.sharding.logical import arange_like, constrain, is_dtensor
+
+from .predict import head_scores, predict_qk, predict_qk_pre
 from .quantizers import PROJECTORS, symmetric_quantize
 from .spls import SPLSConfig, SparsityPlan
 from .mfi import mfi_ffn_sparsity
@@ -125,6 +127,15 @@ class PlanContext:
         Dh)`` / ``kh (B, KV, L, Dh)``."""
         KV, G, Dh = self.KV, self.G, self.Dh
         B, L = qp.shape[0], qp.shape[1]
+        if is_dtensor(qp) and self.mode == "flat":
+            # the reference's flat heads (H, 1), laid out by head: a
+            # DTensor's heads shard over the model axis, as the attention's
+            qh = constrain(qp.reshape(B, L, KV * G, Dh).permute(0, 2, 1, 3),
+                           ("batch", "heads", "seq", None))[:, :, None]
+            kh = constrain(kp.reshape(B, L, KV, Dh).permute(0, 2, 1, 3)
+                           .repeat_interleave(G, 1),
+                           ("batch", "heads", "seq", None))
+            return qh, kh
         qh = qp.reshape(B, L, KV, G, Dh).permute(0, 2, 3, 1, 4)
         kh = kp.reshape(B, L, KV, Dh).permute(0, 2, 1, 3)
         return qh, kh
@@ -277,12 +288,11 @@ class PlanContext:
         causal entries are cleared from both."""
         L = xn.shape[1]
         qh, kh = self.predict_heads(p, xn, act_axis=None)
-        pam = torch.matmul(qh, kh[:, :, None].transpose(-1, -2)) \
-            * self.Dh ** -0.5
+        pam = head_scores(qh, kh) * self.Dh ** -0.5
         tri = None
         if self.scfg.causal:
-            tri = torch.ones((L, L), dtype=torch.bool,
-                             device=xn.device).tril()
+            i = arange_like(qh, L)
+            tri = i[None, :] <= i[:, None]
             pam = pam.masked_fill(~tri, torch.finfo(pam.dtype).min / 2)
         spa, mask = sparsify_pam(pam, self.scfg.k_ratio)
         if tri is not None:

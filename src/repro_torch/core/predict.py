@@ -15,10 +15,12 @@ from typing import Optional
 
 import torch
 
+from repro_torch.sharding.logical import is_dtensor
+
 from .quantizers import quantize_dequantize
 
 __all__ = ["predict_qk", "predict_qk_pre", "predicted_attention",
-           "split_heads"]
+           "split_heads", "head_scores"]
 
 
 def split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -27,6 +29,15 @@ def split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
     if D % n_heads:
         raise ValueError(f"D={D} not divisible by n_heads={n_heads}")
     return x.reshape(*lead, L, n_heads, D // n_heads).transpose(-2, -3)
+
+
+def head_scores(qh: torch.Tensor, kh: torch.Tensor) -> torch.Tensor:
+    """The PAM's unscaled scores of grouped heads: qh (B, KV, G, C, Dh)
+    against kh (B, KV, S, Dh) -> (B, KV, G, C, S).  A ``DTensor`` takes
+    ``einsum``: its ``matmul`` cannot broadcast kh over sharded heads."""
+    if is_dtensor(qh):
+        return torch.einsum("bkgqd,bkld->bkgql", qh, kh)
+    return torch.matmul(qh, kh.unsqueeze(2).transpose(-1, -2))
 
 
 def predict_qk(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,

@@ -26,6 +26,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from repro_torch.sharding.logical import map_local
+
 __all__ = [
     "symmetric_quantize", "hlog_levels", "pot_levels", "apot_levels",
     "project_to_levels", "hlog_project", "pot_project", "apot_project",
@@ -90,9 +92,12 @@ def project_to_levels(mag: torch.Tensor, levels: np.ndarray) -> torch.Tensor:
     Zero stays zero."""
     lv, mids = _level_tensors(tuple(np.asarray(levels).tolist()), mag.dtype,
                               mag.device)
-    idx = torch.searchsorted(mids, mag.contiguous(), right=True)
-    proj = lv[idx]
-    return torch.where(mag == 0, torch.zeros_like(proj), proj)
+
+    def project(m):
+        proj = lv[torch.searchsorted(mids, m.contiguous(), right=True)]
+        return torch.where(m == 0, torch.zeros_like(proj), proj)
+
+    return map_local(project, mag)
 
 
 def _signed_project(x: torch.Tensor, levels: np.ndarray) -> torch.Tensor:

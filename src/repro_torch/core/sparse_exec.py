@@ -229,11 +229,10 @@ def spls_attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         kv_alive = F.pad(kv_alive, (0, pad))
         Ck += pad
     qi = q_perm[..., :, None]
-    m_run = torch.full((B, KVp, Gp, Cq), _NEG, dtype=torch.float32,
-                       device=q.device)
+    # made like the packed rows, so that DTensor rows lay them out alike
+    m_run = torch.full_like(qp[..., 0], _NEG, dtype=torch.float32)
     l_run = torch.zeros_like(m_run)
-    acc = torch.zeros((B, KVp, Gp, Cq, Dh), dtype=torch.float32,
-                      device=q.device)
+    acc = torch.zeros_like(qp, dtype=torch.float32)
     for c0 in range(0, Ck, kv_chunk):
         k_c, v_c = kp[..., c0:c0 + kv_chunk, :], vp[..., c0:c0 + kv_chunk, :]
         id_c = kv_perm[..., None, c0:c0 + kv_chunk]

@@ -19,7 +19,10 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.sharding.logical import arange_like
+
 from .mfi import mfi_ffn_sparsity
+from .predict import head_scores
 from .similarity import local_similarity
 from .topk import topk_count
 
@@ -80,17 +83,15 @@ def _block_pam_mask(qh_blk: torch.Tensor, kh: torch.Tensor, *, k, row0,
     C = qh_blk.shape[-2]
     S = kh.shape[-2]
     scale = scale if scale is not None else Dh ** -0.5
-    pam = (torch.matmul(qh_blk, kh.unsqueeze(2).transpose(-1, -2)) * scale
-           ).to(torch.bfloat16)
-    dev = qh_blk.device
-    qi = row0 + torch.arange(C, device=dev)
-    kj = torch.arange(S, device=dev)
+    pam = (head_scores(qh_blk, kh) * scale).to(torch.bfloat16)
+    qi = row0 + arange_like(qh_blk, C)
+    kj = arange_like(qh_blk, S)
     cmask = (kj[None, :] < n_cols).expand(C, S)
     if causal:
         cmask = cmask & (kj[None, :] <= qi[:, None])
     pam = pam.masked_fill(~cmask, CAUSAL_FILL)
     pam32 = pam.to(torch.float32)
-    valid_rows = torch.arange(C, device=dev) < n_valid_rows
+    valid_rows = arange_like(qh_blk, C) < n_valid_rows
     mask = bisect_topk_mask(pam32, k)
     mask = mask & cmask & valid_rows[:, None]
     return mask, pam32
@@ -176,15 +177,14 @@ def chunked_plan_scan(qh: torch.Tensor, kh: torch.Tensor, *, k_ratio: float,
                          f"({row_block}), and row_block of the window "
                          f"({window})")
     k = topk_count(L, k_ratio)
-    kv_keep = torch.zeros((B, KVp, Gp, L), dtype=torch.bool,
-                          device=qh.device)
+    kv_keep = torch.zeros_like(qh[..., 0], dtype=torch.bool)
     crit, lead, fcrit, flead = [], [], [], []
     for r0 in range(0, L, row_block):
         pb = plan_chunk(qh[..., r0:r0 + row_block, :], kh, k=k, row0=r0,
                         n_valid_rows=row_block, n_cols=L,
                         s_threshold=s_threshold, window=window,
                         f_threshold=f_threshold, causal=causal, scale=scale)
-        kv_keep |= pb.kv_any
+        kv_keep = kv_keep | pb.kv_any
         crit.append(pb.q_critical)
         lead.append(pb.q_leader)
         fcrit.append(pb.ffn_critical)

@@ -18,6 +18,8 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.sharding.logical import map_local
+
 __all__ = ["row_topk_mask", "sparsify_pam", "kv_keep_from_mask",
            "topk_count"]
 
@@ -38,9 +40,13 @@ def row_topk_mask(scores: torch.Tensor, k: int) -> torch.Tensor:
     L = scores.shape[-1]
     if k >= L:
         return torch.ones_like(scores, dtype=torch.bool)
-    idx = torch.sort(scores, dim=-1, descending=True, stable=True).indices
-    mask = torch.zeros(scores.shape, dtype=torch.bool, device=scores.device)
-    return mask.scatter_(-1, idx[..., :k], True)
+
+    def keep(s):
+        idx = torch.sort(s, dim=-1, descending=True, stable=True).indices
+        return torch.zeros_like(s, dtype=torch.bool).scatter_(
+            -1, idx[..., :k], True)
+
+    return map_local(keep, scores)
 
 
 def sparsify_pam(pam: torch.Tensor, k_ratio: float

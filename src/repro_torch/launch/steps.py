@@ -11,10 +11,12 @@ on whatever device the tensors are.  A configuration that names a kernel
 backend trains into that kernel's wrapper, which raises.
 
 The reference's sharding seams bind logical axes to a device mesh:
-``axis_rules`` around the step is installed here by
+``axis_rules`` around the step is installed by
 :class:`~repro_torch.runtime.trainer.Trainer` given a mesh, and picks the
-attention's head layout; ``constrain`` on activations has no counterpart,
-since the step's tensors are plain ones, one global view.
+attention's head layout.  On plain tensors (one global view) the model's
+``constrain`` calls return their input; on the ``DTensor`` inputs of the
+dry run (:mod:`repro_torch.launch.dryrun`) they redistribute the
+activations where the reference constrains them.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import torch
 from repro_torch.device import route_as
 from repro_torch.models import decode_step, loss_fn, prefill
 from repro_torch.optim import AdamWConfig, adamw_update
+from repro_torch.sharding.logical import is_dtensor
 from repro_torch.tree import leaves, tree_map
 
 __all__ = ["make_train_step", "make_prefill_step", "make_serve_step",
@@ -61,6 +64,18 @@ def _value_and_grad(cfg, params, batch):
     return loss.detach(), metrics, tree_map(grad_of, tracked)
 
 
+def _microbatch(v: torch.Tensor, n_micro: int, i: int) -> torch.Tensor:
+    """Microbatch ``i`` of ``n_micro``: rows ``[i * b, (i + 1) * b)`` of a
+    plain batch, as the reference splits it.  A ``DTensor`` batch sharded
+    over its rows takes every ``n_micro``-th row from ``i`` instead, so
+    that each device keeps its own rows (a contiguous block would gather
+    the batch)."""
+    B = v.shape[0]
+    if is_dtensor(v):
+        return v.reshape(B // n_micro, n_micro, *v.shape[1:])[:, i]
+    return v.reshape(n_micro, B // n_micro, *v.shape[1:])[i]
+
+
 def make_loss_grad(cfg, n_micro: int = 1) -> Callable:
     """``(params, batch) -> (grads, metrics)``, with microbatch
     accumulation.
@@ -81,13 +96,12 @@ def make_loss_grad(cfg, n_micro: int = 1) -> Callable:
             if B % n_micro:
                 raise ValueError(f"global batch {B} is not divisible by "
                                  f"n_micro={n_micro}")
-            acc = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
+            acc = tree_map(lambda p: torch.zeros_like(
+                p, dtype=torch.float32), params)
             loss_acc = torch.zeros((), dtype=torch.float32,
                                    device=batch["inputs"].device)
             for i in range(n_micro):
-                mb = {k: v.reshape(n_micro, B // n_micro,
-                                   *v.shape[1:])[i]
+                mb = {k: _microbatch(v, n_micro, i)
                       for k, v in batch.items()}
                 loss, _, grads = _value_and_grad(cfg, params, mb)
                 with torch.no_grad():

@@ -26,8 +26,11 @@ in the structured and flat layouts only; in the padded layout it holds the
 prefill cannot be followed by :func:`attention_decode` (ROADMAP.md, Parity
 rules).
 
-The layouts only pick shapes: tensors stay plain, one global view on every
-rank, so no logical-axis annotation is made on the activations.
+On plain tensors (one global view on every rank) the layouts only pick
+shapes and ``constrain`` returns its input; on the ``DTensor``s of the dry
+run (:mod:`repro_torch.launch.dryrun`) ``constrain`` lays q / k / v and
+the output out where the reference constrains them, and the attention
+itself runs on each device's (batch, head) shards (:func:`_per_head`).
 
 :func:`attention_forward` (whole sequence, optionally returning the
 prefill cache) and :func:`attention_decode` (one token against the
@@ -47,7 +50,9 @@ import torch.nn.functional as F
 
 from repro_torch.core.spls import SparsityPlan
 from repro_torch.core.spls_chunked import ChunkedPlan
-from repro_torch.sharding.logical import _current_mesh, mesh_axis_sizes
+from repro_torch.sharding.logical import (_current_mesh, constrain,
+                                         from_local, is_dtensor,
+                                         mesh_axis_sizes)
 
 from .attn_backend import get_backend, resolve_backend
 from .common import apply_rope, dense_init, rms_norm, rope_freqs
@@ -111,11 +116,13 @@ def init_attention(cfg, gen: torch.Generator, dtype, device) -> dict:
     return p
 
 
-def _kv_rows(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor):
-    """x (B, L, D) -> k/v (B, KV, L, Dh), k normed and RoPE'd."""
+def _kv_rows(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
+             names=("batch", "kv_heads", "seq", None)):
+    """x (B, L, D) -> k/v (B, KV, L, Dh), k normed and RoPE'd; ``names``
+    lay k / v out on a mesh (the reference's constraint)."""
     Dh = cfg.resolved_head_dim
-    k = torch.einsum("bld,dkh->bklh", x, p["wk"])
-    v = torch.einsum("bld,dkh->bklh", x, p["wv"])
+    k = constrain(torch.einsum("bld,dkh->bklh", x, p["wk"]), names)
+    v = constrain(torch.einsum("bld,dkh->bklh", x, p["wv"]), names)
     if cfg.qk_norm:
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     sin, cos = rope_freqs(positions, Dh, cfg.rope_theta)
@@ -139,16 +146,36 @@ def project_qkv(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
                 mode: str = "structured"):
     """x (B, L, D), positions (B, L) -> q, k, v in ``mode``'s layout:
     structured q (B, KV, G, L, Dh), k/v (B, KV, L, Dh); flat / padded q
-    (B, H', 1, L, Dh), k/v (B, H', L, Dh).  The flat layout is the
-    structured products laid out flat (the KV heads repeated), so the two
-    layouts compute alike bit for bit on every device."""
+    (B, H', 1, L, Dh), k/v (B, H', L, Dh).  On plain tensors the flat
+    layout is the structured products laid out flat (the KV heads
+    repeated), so the two layouts compute alike bit for bit on every
+    device.  On ``DTensor``s (the dry run) it is the reference's flat
+    program instead: q through the (H, Dh) product and k / v through
+    per-head weights (``wk`` / ``wv`` repeated over the G heads of a group
+    before the product), each device projecting its own heads.  So the dry
+    run counts that program, not the plain flat one: the two agree up to
+    rounding, not bit for bit, and an SPLS plan may differ at a
+    near-tie."""
     Dh = cfg.resolved_head_dim
-    if mode == "padded":
-        wq, wk, wv = _padded_weights(cfg, p)
-        q = torch.einsum("bld,dhe->bhle", x, wq)[:, :, None]
-        k, v = _kv_rows(cfg, dict(p, wk=wk, wv=wv), x, positions)
+    heads = ("batch", "heads", "seq", None)
+    if mode == "padded" or (mode == "flat" and is_dtensor(x)):
+        # a DTensor's flat heads are the reference's product over (H, Dh)
+        # (its head axis cannot unflatten into (KV, G) on the model axis);
+        # on DTensors the weights are laid out by head first, so that each
+        # device projects its own heads (XLA moves the constraint on q / k
+        # / v into the product)
+        if mode == "padded":
+            ws = _padded_weights(cfg, p)
+        else:
+            G = cfg.n_heads // cfg.n_kv_heads
+            ws = (p["wq"].reshape(cfg.d_model, cfg.n_heads, Dh),
+                  *(p[w].repeat_interleave(G, 1) for w in ("wk", "wv")))
+        wq, wk, wv = (constrain(w, (None, "heads", None)) for w in ws)
+        q = constrain(torch.einsum("bld,dhe->bhle", x, wq), heads)[:, :, None]
+        k, v = _kv_rows(cfg, dict(p, wk=wk, wv=wv), x, positions, heads)
     else:
-        q = torch.einsum("bld,dkgh->bkglh", x, p["wq"])
+        q = constrain(torch.einsum("bld,dkgh->bkglh", x, p["wq"]),
+                      ("batch", "kv_heads", "qgroups", "seq", None))
         k, v = _kv_rows(cfg, p, x, positions)
         if mode == "flat":
             B, KV, G, L, _ = q.shape
@@ -189,17 +216,55 @@ def project_kv(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
 def output_proj(cfg, p: dict, o: torch.Tensor,
                 mode: str = "structured") -> torch.Tensor:
     """o in ``mode``'s layout -> (B, L, D); a flat ``o`` goes through the
-    structured product, a padded head's ``wo`` rows are zero."""
-    if mode == "padded":
+    structured product (a flat ``DTensor`` through the reference's product
+    over (H, Dh)), a padded head's ``wo`` rows are zero."""
+    if mode == "padded" or (mode == "flat" and is_dtensor(o)):
         H, Dh, D = cfg.n_heads, cfg.resolved_head_dim, cfg.d_model
-        wo = F.pad(p["wo"].reshape(H, Dh, D),
-                   (0, 0, 0, 0, 0, _pad_heads_to(cfg) - H))
-        out = torch.einsum("bhld,hdm->blm", o[:, :, 0], wo)
+        wo = p["wo"].reshape(H, Dh, D)
+        if mode == "padded":
+            wo = F.pad(wo, (0, 0, 0, 0, 0, _pad_heads_to(cfg) - H))
+        else:
+            wo = constrain(wo, ("heads", None, None))
+        if is_dtensor(o):
+            # one product over (H, Dh), heads outermost: a shard of the
+            # heads stays a plain shard (einsum's flattening would stride it)
+            B, Hp, _, L, _ = o.shape
+            out = o[:, :, 0].permute(0, 2, 1, 3).reshape(B, L, Hp * Dh) \
+                @ wo.reshape(Hp * Dh, D)
+        else:
+            out = torch.einsum("bhld,hdm->blm", o[:, :, 0], wo)
     else:
         if mode == "flat":
             o = o.reshape(o.shape[0], *p["wo"].shape[:2], *o.shape[3:])
         out = torch.einsum("bkgld,kgdm->blm", o, p["wo"])
-    return out
+    return constrain(out, ("batch", "seq", "embed"))
+
+
+def _per_head(fn, q, k, v, plan):
+    """``fn(q, k, v, plan) -> o`` (like q) on ``DTensor``s: attention is
+    local to its (batch, head) rows, so each device runs ``fn`` on its own
+    shards -- q's batch and head dims keep their mesh axes, the sequence
+    and feature dims are gathered whole, k / v and the plan's per-head
+    fields are laid out as q -- and ``o`` is q's layout.  (Op by op,
+    ``DTensor`` would plan a redistribution for every product of the
+    chunk loop.)"""
+    from torch.distributed.tensor import Replicate
+
+    mesh = q.device_mesh
+    head = tuple(p if p.is_shard() and p.dim in (0, 1, 2) else Replicate()
+                 for p in q.placements)
+    kv = tuple(p if p.is_shard() and p.dim < 2 else Replicate()
+               for p in head)
+
+    def local(t, pl):
+        return t.redistribute(mesh, pl).to_local()
+
+    if plan is not None:
+        plan = type(plan)(*(
+            local(t, head) if is_dtensor(t) and tuple(t.shape[:3])
+            == tuple(q.shape[:3]) else t for t in plan))
+    o = fn(local(q, head), local(k, kv), local(v, kv), plan)
+    return from_local(o, mesh, head, q.shape)
 
 
 def attention_forward(cfg, p: dict, x: torch.Tensor,
@@ -218,16 +283,27 @@ def attention_forward(cfg, p: dict, x: torch.Tensor,
     B, L, _ = x.shape
     mode = head_shard_mode(cfg)
     positions = torch.arange(L, device=x.device).expand(B, L)
+    if is_dtensor(x):   # laid out as x's rows, not whole on every device
+        positions = torch.zeros_like(x[..., 0], dtype=torch.long) + positions
     q, k, v = project_qkv(cfg, p, x, positions, mode)
     name = resolve_backend(backend or cfg.attn_backend, x.device, "forward",
                            plan, L=L, q_capacity=q_capacity)
-    o = get_backend(name)(cfg, q, k, v, window=window, plan=plan,
-                          q_capacity=q_capacity, kv_capacity=kv_capacity)
+    fn = lambda q, k, v, plan: get_backend(name)(
+        cfg, q, k, v, window=window, plan=plan, q_capacity=q_capacity,
+        kv_capacity=kv_capacity)
+    o = _per_head(fn, q, k, v, plan) if is_dtensor(q) else fn(q, k, v, plan)
     out = output_proj(cfg, p, o, mode)
     if cache_len is not None:
         if mode == "flat":  # back to one copy of each KV head
+            if is_dtensor(k):
+                # heads over the model axis -> the sequence (an
+                # all-to-all), so that the copies drop without a gather
+                k, v = (constrain(t, ("batch", None, "act_seq", None))
+                        for t in (k, v))
             G = cfg.n_heads // cfg.n_kv_heads
             k, v = k[:, ::G], v[:, ::G]
+        if is_dtensor(k) and cache_len == L:
+            return out, KVCache(k=k, v=v)
         pad = (0, 0, 0, cache_len - L)
         return out, KVCache(k=F.pad(k, pad), v=F.pad(v, pad))
     return out
@@ -247,9 +323,18 @@ def attention_decode(cfg, p: dict, x: torch.Tensor, cache: KVCache,
     S = cache.k.shape[2]
     q, k_new, v_new = project_qkv(cfg, p, x, pos[:, None])
     # the reference's dynamic_update_slice clamps the start into range
-    idx = pos.long().clamp(0, S - 1).view(B, 1, 1, 1).expand_as(k_new)
-    cache.k.scatter_(2, idx, k_new.to(cache.k.dtype))
-    cache.v.scatter_(2, idx, v_new.to(cache.v.dtype))
+    slot = pos.long().clamp(0, S - 1)
+    if is_dtensor(cache.k):
+        # DTensor has no in-place scatter on a sequence-sharded cache: the
+        # write is a select against the slot, copied back in place
+        hit = (torch.arange(S, device=x.device) == slot[:, None])
+        hit = hit[:, None, :, None]
+        cache.k.copy_(torch.where(hit, k_new.to(cache.k.dtype), cache.k))
+        cache.v.copy_(torch.where(hit, v_new.to(cache.v.dtype), cache.v))
+    else:
+        idx = slot.view(B, 1, 1, 1).expand_as(k_new)
+        cache.k.scatter_(2, idx, k_new.to(cache.k.dtype))
+        cache.v.scatter_(2, idx, v_new.to(cache.v.dtype))
     name = resolve_backend(backend or cfg.attn_backend, x.device, "decode")
     o = get_backend(name)(cfg, q[:, :, :, 0], cache.k, cache.v, pos=pos,
                           window=window)

@@ -97,6 +97,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import route_platform
+from repro_torch.sharding.logical import arange_like
 from repro_torch.core.sparse_exec import (gather_rows, pack_by_mask,
                                           spls_attention,
                                           spls_attention_chunked,
@@ -135,11 +136,11 @@ _ALIASES = {"xla_dense": "torch_dense", "xla_packed": "torch_packed",
 # ---------------------------------------------------------------------------
 
 def _band_mask(L: int, window: Optional[int], causal: bool,
-               device) -> torch.Tensor:
-    i = torch.arange(L, device=device)[:, None]
-    j = torch.arange(L, device=device)[None, :]
-    m = (j <= i) if causal else torch.ones((L, L), dtype=torch.bool,
-                                           device=device)
+               like: torch.Tensor) -> torch.Tensor:
+    """(L, L) attention band, made as ``like`` is (:func:`arange_like`)."""
+    i = arange_like(like, L)[:, None]
+    j = arange_like(like, L)[None, :]
+    m = (j <= i) if causal else torch.ones_like(j == i)
     if window is not None:
         m = m & (i - j < window) & (j - i < (1 if causal else window))
     return m
@@ -158,7 +159,7 @@ def _window_plan(plan: SparsityPlan, L: int, window: Optional[int],
     if window is None:
         return plan
     return plan._replace(attn_mask=plan.attn_mask & _band_mask(
-        L, window, causal, plan.attn_mask.device))
+        L, window, causal, plan.attn_mask))
 
 
 def torch_dense(cfg, q, k, v, *, window=None, plan=None, q_capacity=None,
@@ -170,7 +171,7 @@ def torch_dense(cfg, q, k, v, *, window=None, plan=None, q_capacity=None,
         return spls_attention(q, kr, vr, plan, Dh ** -0.5, cfg.attn_softcap)
     s = torch.einsum("bkgqd,bkld->bkgql", q, k) * Dh ** -0.5
     s = _softcap(s, cfg.attn_softcap)
-    m = _band_mask(L, window, cfg.causal, q.device)
+    m = _band_mask(L, window, cfg.causal, q)
     s = s.masked_fill(~m, -1e30)
     a = torch.softmax(s.float(), dim=-1).to(q.dtype)
     return torch.einsum("bkgql,bkld->bkgqd", a, v)
@@ -201,17 +202,16 @@ def torch_chunked(cfg, q, k, v, *, window=None, plan=None, q_capacity=None,
     if pad:     # ragged tail: padded columns are masked by `kj < L`
         k = F.pad(k, (0, 0, 0, pad))
         v = F.pad(v, (0, 0, 0, pad))
-    qi = torch.arange(L, device=q.device)[:, None]
-    m_run = torch.full((B, KV, G, L), -1e30, dtype=torch.float32,
-                       device=q.device)
+    qi = arange_like(q, L)[:, None]
+    # made like q, so that a DTensor q lays them out as its own
+    m_run = torch.full_like(q[..., 0], -1e30, dtype=torch.float32)
     l_run = torch.zeros_like(m_run)
-    acc = torch.zeros((B, KV, G, L, Dh), dtype=torch.float32,
-                      device=q.device)
+    acc = torch.zeros_like(q, dtype=torch.float32)
     for c0 in range(0, L + pad, C):
         k_c, v_c = k[:, :, c0:c0 + C], v[:, :, c0:c0 + C]
         s = torch.einsum("bkgqd,bkld->bkgql", q, k_c).float() * Dh ** -0.5
         s = _softcap(s, cfg.attn_softcap)
-        kj = c0 + torch.arange(C, device=q.device)[None, :]
+        kj = c0 + arange_like(q, C)[None, :]
         mask = (kj < L).expand(L, C)
         if cfg.causal:
             mask = mask & (kj <= qi)

@@ -16,6 +16,8 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding.logical import constrain
+
 from .common import dense_init, rms_norm
 
 __all__ = ["init_mamba", "mamba_forward", "mamba_decode", "MambaCache",
@@ -161,6 +163,7 @@ def mamba_forward(cfg, pr: dict, u: torch.Tensor, chunk: int = 256,
         conv_tail = tail.transpose(1, 2).contiguous()
     xc = _conv1d_causal(xc, pr["conv_w"], pr["conv_b"])
     x, Bm, Cm = xc[..., :di], xc[..., di:di + n], xc[..., di + n:]
+    x = constrain(x, ("batch", "seq", "inner"))
 
     dt = F.softplus(dt.to(torch.float32) + pr["dt_bias"])
     A = -torch.exp(pr["A_log"])
@@ -168,7 +171,8 @@ def mamba_forward(cfg, pr: dict, u: torch.Tensor, chunk: int = 256,
     y, final = ssd_chunked(xh, dt, A, Bm.to(torch.float32),
                            Cm.to(torch.float32), chunk)
     y = y + pr["D"][None, None, :, None] * xh
-    out = _gated_out(cfg, pr, y.reshape(B_, L, di), z, u.dtype)
+    out = constrain(_gated_out(cfg, pr, y.reshape(B_, L, di), z, u.dtype),
+                    ("batch", "seq", "embed"))
     if want_cache:
         return out, MambaCache(conv=conv_tail, ssd=final)
     return out

@@ -16,6 +16,12 @@ period body in ``jax.checkpoint`` -- only while autograd records; serving
 runs no checkpoint.  :func:`loss_fn` is the reference's cross-entropy
 loss.
 
+The embedding, the period boundaries and the logits carry the reference's
+sharding constraints (``constrain``: a no-op on plain tensors).  On the
+``DTensor`` inputs of the dry run the weights gather their ZeRO shards
+before use, the lookup is vocabulary-parallel and the loss reduces over
+vocabulary shards instead of gathering them.
+
 Modality frontends (the audio / vlm archs) are stubs, as in the
 reference: with ``cfg.input_mode == "embeddings"`` the model consumes
 precomputed frame / patch embeddings of shape (B, L, D) instead of token
@@ -30,6 +36,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device, route_as, route_platform
+from repro_torch.sharding.logical import arange_like, constrain, is_dtensor
+from repro_torch.sharding.rules import unshard_fsdp
 
 from .blocks import (block_decode, block_forward, init_block,
                      init_block_cache)
@@ -112,31 +120,40 @@ def embed_inputs(cfg, params: Params, inputs: torch.Tensor) -> torch.Tensor:
     the compute dtype (scaled by sqrt(d_model), rounded to that dtype, when
     ``cfg.scale_embedding``)."""
     dtype = dtype_of(cfg.compute_dtype)
-    if cfg.input_mode == "tokens":
+    if cfg.input_mode == "tokens" and is_dtensor(params["embed"]):
+        # DTensor's vocab-parallel lookup (masked rows, then a sum)
+        x = torch.nn.functional.embedding(
+            inputs.long(), unshard_fsdp(params["embed"])).to(dtype)
+    elif cfg.input_mode == "tokens":
         x = params["embed"][inputs.long()].to(dtype)
     else:  # modality stub: precomputed embeddings
         x = inputs.to(dtype)
     if cfg.scale_embedding:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dtype,
                              device=x.device)
-    return x
+    return constrain(x, ("batch", "seq", "embed"))
 
 
 def head_logits(cfg, params: Params, x: torch.Tensor) -> torch.Tensor:
     """Final norm + LM head (tied: ``x @ embed.T``): (B, L, D) -> (B, L,
     V)."""
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    w = params["embed"].T if cfg.tied_embeddings else params["lm_head"]
-    return softcap(x @ w.to(x.dtype), cfg.final_softcap)
+    w = unshard_fsdp(params["embed"].T if cfg.tied_embeddings
+                     else params["lm_head"])
+    return constrain(softcap(x @ w.to(x.dtype), cfg.final_softcap),
+                     ("batch", "seq", "vocab"))
 
 
 def period_params(params: Params, pi: int, dtype) -> tuple:
     """Period ``pi``'s block params: views into the stacked leaves, cast to
-    the compute dtype (a no-op view when it already matches)."""
+    the compute dtype (a no-op view when it already matches); a
+    ``DTensor`` leaf's ZeRO shards gathered (:func:`~repro_torch.sharding.
+    rules.unshard_fsdp`)."""
     def one(t):
         if isinstance(t, dict):
             return {k: one(v) for k, v in t.items()}
-        return t[pi].to(dtype) if t.is_floating_point() else t[pi]
+        return unshard_fsdp(t[pi].to(dtype) if t.is_floating_point()
+                            else t[pi])
     return tuple(one(bp) for bp in params["periods"])
 
 
@@ -146,6 +163,9 @@ def _period(cfg, params: Params, pi: int, x: torch.Tensor,
     forward that a recompute in backward must repeat (autograd runs
     backward on its own threads, which do not see the caller's
     :func:`~repro_torch.device.route_as`)."""
+    # layer-boundary activations shard their sequence over the model axis
+    # (Megatron sequence parallelism), as the reference's
+    x = constrain(x, ("batch", "act_seq", "embed"))
     with route_as(platform):
         for blk, bp in zip(cfg.period, period_params(
                 params, pi, dtype_of(cfg.compute_dtype))):
@@ -192,13 +212,28 @@ def loss_fn(cfg, params: Params, batch: Dict[str, torch.Tensor]):
     if mask is None:
         mask = torch.ones(labels.shape, dtype=torch.float32,
                           device=logits.device)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    if is_dtensor(logits):
+        # over vocabulary shards: reductions across them, no gather of the
+        # vocabulary; accuracy counts a label whose logit is the row's max
+        # (per-token terms laid out by rows, so that their gradients reach
+        # the vocabulary shards whole)
+        tok = ("batch", "seq")
+        top = logits.detach().amax(-1, keepdim=True)
+        logz = top[..., 0] + torch.log(
+            constrain(torch.exp(logits - top).sum(-1), tok))
+        vocab = constrain(arange_like(logits, logits.shape[-1]), ("vocab",))
+        gold = constrain(torch.where(vocab == labels[..., None], logits,
+                                     0.0).sum(-1), tok)
+        hit = lambda: gold.detach() >= top[..., 0]
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+        hit = lambda: logits.argmax(-1) == labels
     nll = (logz - gold) * mask
     denom = mask.sum().clamp(min=1.0)
     loss = nll.sum() / denom
     with torch.no_grad():
-        acc = (logits.argmax(-1) == labels).float()
+        acc = hit().float()
         metrics = {"loss": loss.detach(),
                    "accuracy": (acc * mask).sum() / denom,
                    "tokens": mask.sum()}

@@ -16,6 +16,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.sharding.logical import constrain
+
 from .common import Activations, dense_init
 
 __all__ = ["init_mlp", "mlp_forward", "init_moe", "moe_forward",
@@ -42,7 +44,9 @@ def mlp_forward(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
         up = up * act(x @ p["w_gate"])
     else:
         up = act(up)
-    return up @ p["w_down"]
+    lead = ("batch",) + (None,) * (up.ndim - 2)
+    up = constrain(up, lead + ("ffn",))
+    return constrain(up @ p["w_down"], lead + ("embed",))
 
 
 # ---------------------------------------------------------------------------
@@ -109,17 +113,24 @@ def moe_forward(cfg, p: dict, x: torch.Tensor,
     logits = x.to(torch.float32) @ p["router"].to(torch.float32)
     probs = torch.softmax(logits, dim=-1)
     dispatch, combine = _dispatch_combine(probs, cfg.moe_topk, C)
-    dispatch = dispatch.to(x.dtype)
-    combine = combine.to(x.dtype)
+    # the reference's constraints; on DTensors the (token, expert) maps
+    # are laid out by expert first, so each device dispatches to its own
+    # experts (XLA moves the constraint on xin into the product)
+    by_expert = ("batch", None, "experts", None)
+    dispatch = constrain(dispatch.to(x.dtype), by_expert)
+    combine = constrain(combine.to(x.dtype), by_expert)
 
-    xin = torch.einsum("blec,bld->becd", dispatch, x)
+    experts = ("batch", "experts", None, None)
+    xin = constrain(torch.einsum("blec,bld->becd", dispatch, x), experts)
     up = torch.einsum("becd,edf->becf", xin, p["w_up"])
     if "w_gate" in p:
         up = up * act(torch.einsum("becd,edf->becf", xin, p["w_gate"]))
     else:
         up = act(up)
-    yout = torch.einsum("becf,efd->becd", up, p["w_down"])
-    return torch.einsum("blec,becd->bld", combine, yout)
+    yout = constrain(torch.einsum("becf,efd->becd", up, p["w_down"]),
+                     experts)
+    return constrain(torch.einsum("blec,becd->bld", combine, yout),
+                     ("batch", "seq", "embed"))
 
 
 def moe_aux_loss(probs: torch.Tensor, dispatch: torch.Tensor) -> torch.Tensor:

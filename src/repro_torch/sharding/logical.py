@@ -33,9 +33,15 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
+try:
+    from torch.distributed.tensor import DTensor
+except ImportError:             # a build without torch.distributed
+    DTensor = ()
+
 __all__ = ["PartitionSpec", "NamedSharding", "axis_rules", "current_rules",
            "constrain", "logical_to_mesh", "spec_for", "named_sharding",
-           "placements", "mesh_axis_sizes"]
+           "placements", "mesh_axis_sizes", "is_dtensor", "arange_like",
+           "map_local", "from_local"]
 
 MeshAxes = Union[str, Tuple[str, ...], None]
 
@@ -51,6 +57,52 @@ class PartitionSpec(tuple):
 
     def __repr__(self) -> str:
         return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+def is_dtensor(x) -> bool:
+    """True for a ``DTensor`` (the dry run's sharded inputs); the model's
+    DTensor-only forms branch on it, so a plain tensor keeps its path."""
+    return isinstance(x, DTensor)
+
+
+def arange_like(t: torch.Tensor, n: int, dtype=torch.long) -> torch.Tensor:
+    """``0 .. n-1`` on ``t``'s device.  A tensor subclass (a ``DTensor``:
+    replicated; a fake tensor) makes them as it makes ``t``, so that the
+    positions, and the masks built from them, are made as ``t`` is (in the
+    dry run: fake, no host tensor); a plain tensor takes ``arange``."""
+    if type(t) is not torch.Tensor:
+        return t.new_ones((n,), dtype=dtype).cumsum(0, dtype=dtype) - 1
+    return torch.arange(n, dtype=dtype, device=t.device)
+
+
+def map_local(fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn(x)`` for an ``fn`` that maps every row (last axis) of ``x`` on
+    its own to a row of a result of ``x``'s shape.  A ``DTensor`` ``x``
+    (its partial sums reduced, its rows gathered whole first) runs ``fn``
+    on its local shard and keeps its layout: for the ops ``DTensor`` has no
+    sharding rule for (``searchsorted``, a stable sort's scatter)."""
+    if not is_dtensor(x):
+        return fn(x)
+    from torch.distributed.tensor import Replicate
+
+    last = x.dim() - 1
+    pl = tuple(Replicate() if p.is_partial() or (p.is_shard() and p.dim in
+                                                (last, -1)) else p
+               for p in x.placements)
+    if pl != tuple(x.placements):
+        x = x.redistribute(x.device_mesh, pl)
+    return from_local(fn(x.to_local()), x.device_mesh, pl, x.shape)
+
+
+def from_local(local: torch.Tensor, mesh, pl: tuple, shape):
+    """A ``DTensor`` of global ``shape`` (contiguous) laid out by ``pl``
+    whose local shard is ``local``."""
+    stride, n = [], 1
+    for d in reversed(shape):
+        stride.insert(0, n)
+        n *= d
+    return DTensor.from_local(local, mesh, pl, run_check=False,
+                              shape=shape, stride=tuple(stride))
 
 
 def mesh_axis_sizes(mesh) -> Dict[str, int]:
@@ -162,10 +214,8 @@ def constrain(x: torch.Tensor, names: Sequence[Optional[str]]
     A plain tensor is one global view and comes back unchanged (the
     reference's meaning without a mesh); a ``DTensor`` is redistributed to
     the spec's placements."""
-    from torch.distributed.tensor import DTensor
-
     rules, mesh = current_rules(), _current_mesh()
-    if rules is None or mesh is None or not isinstance(x, DTensor):
+    if rules is None or mesh is None or not is_dtensor(x):
         return x
     spec = logical_to_mesh(names, x.shape, rules, mesh)
     return x.redistribute(x.device_mesh, placements(spec, x.device_mesh))

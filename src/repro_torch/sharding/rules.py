@@ -24,11 +24,12 @@ from __future__ import annotations
 from typing import Any, Dict
 
 from repro_torch.tree import tree_map, tree_map_with_path
-from .logical import NamedSharding, PartitionSpec as P, logical_to_mesh, \
-    mesh_axis_sizes
+from .logical import NamedSharding, PartitionSpec as P, is_dtensor, \
+    logical_to_mesh, mesh_axis_sizes
 
 __all__ = ["activation_rules", "param_sharding", "cache_sharding",
-           "batch_sharding", "opt_state_sharding", "DATA_AXES"]
+           "batch_sharding", "opt_state_sharding", "DATA_AXES",
+           "unshard_fsdp"]
 
 
 def DATA_AXES(mesh):
@@ -96,6 +97,23 @@ def param_sharding(cfg, mesh, abstract_params: Any) -> Any:
                                                    mesh))
 
     return tree_map_with_path(assign, abstract_params)
+
+
+def unshard_fsdp(t):
+    """A parameter as a step computes with it: a ``DTensor``'s ZeRO shards
+    over the in-pod data axis (the ``fsdp`` binding above) gathered, its
+    model-axis shards kept -- the all-gather XLA places before each use.
+    A plain tensor comes back unchanged."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate
+
+    names = t.device_mesh.mesh_dim_names
+    pl = tuple(Replicate() if names[i] == "data" and p.is_shard() else p
+               for i, p in enumerate(t.placements))
+    if pl == tuple(t.placements):
+        return t
+    return t.redistribute(t.device_mesh, pl)
 
 
 def opt_state_sharding(param_shardings: Any, opt_state_abstract: Any) -> Any:
