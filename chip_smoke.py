@@ -115,7 +115,7 @@ and nothing falls back to the CPU):
    qwen3-0.6b at full width and depth (as (p)) trained under the
    reference's SPLS training configuration (k 0.12, s 0.6, f 6, window 8,
    q capacity 0.5, kv capacity 0.75 of L) through ``Trainer``, 4096
-   tokens, ``n_micro`` 8, 3 steps: every forward attention call on
+   tokens, ``n_micro`` 8, 2 steps: every forward attention call on
    ``torch_packed``, step 1's gradient of every layer's wq / wk / wv / wo
    finite and nonzero, losses finite, no launch; step time, tokens/s,
    peak memory beside (p)'s; then the float32 smoke form at q 0.5 card
@@ -157,8 +157,16 @@ and nothing falls back to the CPU):
    beside the dry run's roofline, their logits held against B4's and B5's
    plain versions on the same inputs (the decode cache from a prefill);
    (aa.3) the dry run of path (p)'s step
-   beside (p)'s peak and step time.  (aa.1) and (aa.3) use the host only
+   beside (p)'s peak and step time; (aa.1) also holds its alias bytes to
+   the cache's.  (aa.1) and (aa.3) use the host only
    and start before path (p).
+11. A second architecture's dry run against the card, path (ab):
+   h2o-danube3-4b at full width and depth (24 x 3840, 32 heads, 8 KV
+   heads, Dh 120, G 4, window 4096; bf16 as published) through (aa.2)'s
+   steps and checks, B4 and B5 at Dh 120 and G 4; and (ab.1), ``python
+   -m repro_torch.launch.dryrun --arch h2o-danube3-4b --shape
+   decode_32k`` on 16 x 16 (started with (aa.1)), whose argument bytes
+   must equal path (y)'s and whose alias bytes its cache's.
 
 The last lines are the ``{"kernels": [...]}`` line, the card's
 ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
@@ -845,6 +853,10 @@ def check_flash_attention(K, gen) -> dict:
               dict(causal=True, window=64)),
              ("llama3_g16", dict(G=16, H=16, L=L, Dh=128),
               dict(causal=True)),
+             # path (ab)'s prefill: h2o-danube3's 32 heads over 4096 tokens,
+             # its window 4096 (one row of the step's batch of 2)
+             ("danube_ab_L_4096", dict(B=1, G=4, H=32, L=4096, Dh=120),
+              dict(causal=True, window=4096)),
              # the head layouts of paths (w) and (x), G 1
              ("qwen3_flat_plan", _flat_plan_case, dict(causal=True)),
              ("musicgen_padded_h32", _padded_case, dict(causal=True))]
@@ -956,6 +968,11 @@ def check_flash_decode(K, gen) -> dict:
              # 4096-slot cache, bf16
              ("bf16_qwen3_S_4096", dict(G=2, pos=[4095] * 8, KV=16, S=4096,
                                         Dh=128, dtype=torch.bfloat16), {}),
+             # path (ab)'s: h2o-danube3-4b's (G 4, Dh 120, window 4096)
+             ("bf16_danube_ab_S_4096", dict(G=4, pos=[4095] * 8, KV=32,
+                                            S=4096, Dh=120,
+                                            dtype=torch.bfloat16),
+              dict(window=4096)),
              # gemma2's local block in bf16: G 2, Dh 128, window, softcap
              ("bf16_gqa_g2_window_softcap", dict(G=2, pos=path_pos(),
                                                  Dh=128, q_scale=4.0,
@@ -2621,7 +2638,8 @@ def qwen3_train_spls_packed(K, dense_step_s: float):
     reference's SPLS training configuration (k 0.12, s 0.6, f 6, window 8,
     q capacity 0.5, kv capacity 0.75 of L) through ``Trainer`` on the
     synthetic ``lm`` task, ``TRAIN_SPLS_L`` tokens, global batch 8,
-    ``n_micro`` 8, 3 steps: every forward attention call resolves
+    ``n_micro`` 8, 2 steps (the script's time limit): every forward
+    attention call resolves
     ``torch_packed`` (28 sites x 8 micro-batches x 2, remat's recompute),
     step 1's gradient of every attention weight of every layer is finite
     and nonzero, every loss finite, no kernel launch; step time, tokens/s,
@@ -2676,7 +2694,7 @@ def qwen3_train_spls_packed(K, dense_step_s: float):
     del params, grads
     _free()
 
-    t = Trainer(cfg, TrainerConfig(total_steps=3, log_every=1,
+    t = Trainer(cfg, TrainerConfig(total_steps=2, log_every=1,
                                    n_micro=n_micro, seed=SEED), data)
     out = t.run()
     launches = K.launch_counts()
@@ -2690,7 +2708,7 @@ def qwen3_train_spls_packed(K, dense_step_s: float):
                step_time_over_dense=dt / dense_step_s,
                launches_while_training=launches)
     if not all(math.isfinite(m["loss"]) for m in out["metrics"]) or \
-            len(out["metrics"]) != 3 or any(launches.values()):
+            len(out["metrics"]) != 2 or any(launches.values()):
         _fail(f"qwen3_train_spls_packed: {row}")
     _free()
     row["smoke_card_vs_cpu"] = _packed_smoke_cpu_vs_card(K)
@@ -2808,7 +2826,7 @@ def _sampled(K, Engine, cfg, params, scfg, prompts, check=False) -> tuple:
 
 def qwen3_sampled_serving(K, params) -> dict:
     """Path (t): the weights (s) trained, served at full width in float32
-    by temperature sampling (T 0.8, seed 0): 4 prompts of 384 tokens from
+    by temperature sampling (T 0.8, seed 0): 2 prompts of 384 tokens from
     (i)'s traffic, 16 new tokens each, through the paged engine with SPLS
     (``packed_cuda`` + ``cuda_paged_decode``: B1 / B2 / B3) and the dense
     engine (``cuda_flash`` + ``cuda_flash_decode``: B4 / B5), each against
@@ -2826,7 +2844,7 @@ def qwen3_sampled_serving(K, params) -> dict:
     nospls = dataclasses.replace(
         qwen, spls=dataclasses.replace(qwen.spls, enabled=False))
     on = lambda c, name: dataclasses.replace(c, attn_backend=name)
-    prompts = _prompts(qwen.vocab_size)[:4]
+    prompts = _prompts(qwen.vocab_size)[:2]     # the script's time limit
     hot = dict(greedy=False, temperature=0.8, seed=0)
     paged = dict(n_slots=4, page_size=16, prefill_chunk=64, max_len=512,
                  spls_prune_vote=0.5)
@@ -3225,8 +3243,11 @@ def production_specs() -> list:
     return json.loads(line)["production_specs"]
 
 
-# path (aa)'s cells on one card: qwen3-0.6b at full width, published dtypes
+# path (aa)'s cells on one card, for qwen3-0.6b (aa.2) and h2o-danube3-4b
+# (ab) at full width, published dtypes
 AA_CELLS = (("prefill", 4096, 2), ("decode", 4096, 8))
+# path (ab)'s architecture: Dh 120, G 4 (aa's qwen3-0.6b: Dh 128, G 2)
+AB_ARCH = "h2o-danube3-4b"
 
 
 def _aa_inputs(cfg, kind: str, L: int, B: int, gen) -> tuple:
@@ -3247,9 +3268,10 @@ def _aa_inputs(cfg, kind: str, L: int, B: int, gen) -> tuple:
             torch.full((B,), L - 1, dtype=torch.int32, device="cuda"))
 
 
-def dryrun_vs_card_body() -> None:
-    """The body of path (aa.2), run in a process of its own: the dry run of
-    qwen3-0.6b's prefill (B 2 x L 4096) and decode step (B 8 against a
+def dryrun_vs_card_body(arch: str = "qwen3-0.6b") -> None:
+    """The body of path (aa.2) (``arch`` qwen3-0.6b) and of path (ab)
+    (:data:`AB_ARCH`), run in a process of its own: the dry run of
+    ``arch``'s prefill (B 2 x L 4096) and decode step (B 8 against a
     4096-token cache) on a one-rank mesh (a ``fake`` group of one rank,
     destroyed after), then the same steps for real on the card under the
     dry run's routes (``route_as("cpu")``): the real inputs' bytes must
@@ -3279,7 +3301,7 @@ def dryrun_vs_card_body() -> None:
     from repro_torch.tree import leaves, tree_map
 
     resolve_device()
-    cfg = get_config("qwen3-0.6b")
+    cfg = get_config(arch)
     with fake_group(1):
         mesh = make_cpu_mesh(1, 1)
         dry = {kind: analyze_step(cfg, ShapeCfg(f"aa_{kind}", L, B, kind),
@@ -3333,7 +3355,7 @@ def dryrun_vs_card_body() -> None:
         launches[kernel] = n[kernel]
         roof = {"compute_s": stats["dot_flops"] / PEAK_FLOPS,
                 "memory_s": stats["traffic_bytes"] / HBM_BW}
-        row = {"dryrun_vs_card": f"qwen3-0.6b {kind} B {B} x L {L}",
+        row = {"dryrun_vs_card": f"{arch} {kind} B {B} x L {L}",
                "argument_bytes_dry": mem["argument_bytes_per_device"],
                "argument_bytes_card": arg_bytes,
                "dot_flops_dry": stats["dot_flops"],
@@ -3347,8 +3369,8 @@ def dryrun_vs_card_body() -> None:
                "step_over_roofline": step_s / max(roof.values()),
                "trace_s": d["trace_s"], "device": _smi()}
         try:
-            _hold_logits(f"dryrun_vs_card {kind}", "logits", got, ref,
-                         1 if kind == "prefill" else 4, row, control,
+            _hold_logits(f"dryrun_vs_card {arch} {kind}", "logits", got,
+                         ref, 1 if kind == "prefill" else 4, row, control,
                          control_name)
         except SystemExit as e:
             bad.append(str(e))
@@ -3369,7 +3391,7 @@ def dryrun_vs_card_body() -> None:
         del args
     print(json.dumps({"dryrun_vs_card_launches": launches}))
     if bad:
-        raise SystemExit(f"dryrun_vs_card: {bad}")
+        raise SystemExit(f"dryrun_vs_card {arch}: {bad}")
 
 
 def _aa_subprocess(code: str):
@@ -3380,19 +3402,23 @@ def _aa_subprocess(code: str):
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
 
+def _dryrun_cli(arch: str, shape: str):
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape], cwd=Path(__file__).resolve().parent,
+        env=dict(os.environ, PYTHONPATH="src"), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+
 def start_host_dryruns() -> dict:
-    """Path (aa)'s two runs that use the host only, started early so
-    they overlap the card's training phases: (aa.1) ``python -m
-    repro_torch.launch.dryrun --arch qwen3-0.6b --shape decode_32k`` and
-    (aa.3) :func:`dryrun_p_step`.  :func:`dryrun_vs_card` reads them."""
-    return {
-        "aa1": subprocess.Popen(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-             "qwen3-0.6b", "--shape", "decode_32k"],
-            cwd=Path(__file__).resolve().parent,
-            env=dict(os.environ, PYTHONPATH="src"), stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True),
-        "aa3": _aa_subprocess("c.dryrun_p_step()")}
+    """Paths (aa)'s and (ab)'s runs that use the host only, started early
+    so they overlap the card's training phases: (aa.1) and (ab.1) ``python
+    -m repro_torch.launch.dryrun --arch qwen3-0.6b`` (``AB_ARCH``) ``--shape
+    decode_32k``, and (aa.3) :func:`dryrun_p_step`.  :func:`dryrun_vs_card`
+    reads them."""
+    return {"aa1": _dryrun_cli("qwen3-0.6b", "decode_32k"),
+            "ab1": _dryrun_cli(AB_ARCH, "decode_32k"),
+            "aa3": _aa_subprocess("c.dryrun_p_step()")}
 
 
 def _aa_wait(name: str, proc, timeout: int) -> list:
@@ -3424,39 +3450,54 @@ def dryrun_p_step() -> None:
     print(json.dumps(a))
 
 
-def dryrun_vs_card(specs: list, p_step_s: float, p_peak: int,
-                   host: dict) -> dict:
-    """Path (aa): (aa.1) ``python -m repro_torch.launch.dryrun --arch
-    qwen3-0.6b --shape decode_32k`` on 16 x 16, whose argument bytes must
-    equal path (y)'s qwen3 parameter and ``decode_32k`` cache bytes plus
-    the tokens' and positions' local bytes; (aa.2)
-    :func:`dryrun_vs_card_body` in a subprocess; (aa.3) the dry run of path
-    (p)'s step (:func:`dryrun_p_step`) beside (p)'s measured peak and step
-    time.  ``host`` holds (aa.1) and (aa.3), started by
-    :func:`start_host_dryruns`.  Returns (aa.2)'s launches."""
-    from repro_torch.launch.dryrun import HBM_BW, PEAK_FLOPS
-
-    a1, a3 = host["aa1"], host["aa3"]
-    lines2 = _aa_wait("dryrun_vs_card", _aa_subprocess(
-        "c.dryrun_vs_card_body()"), 300)
-    for ln in lines2[:-1]:
-        print(ln)
-    launches = json.loads(lines2[-1])["dryrun_vs_card_launches"]
-
-    res = json.loads("\n".join(_aa_wait("dryrun qwen3-0.6b decode_32k", a1,
+def _dryrun_decode_32k(specs: list, arch: str, proc) -> None:
+    """(aa.1) / (ab.1): the host dry run of ``arch``'s ``decode_32k`` on 16
+    x 16, whose argument bytes must equal path (y)'s parameter and cache
+    bytes plus the tokens' and positions' local bytes, and whose alias
+    bytes the cache's (updated in place)."""
+    res = json.loads("\n".join(_aa_wait(f"dryrun {arch} decode_32k", proc,
                                          300)))
     row = next(r for r in specs
-               if r["arch"] == "qwen3-0.6b" and r["mesh"] == "16x16")
+               if r["arch"] == arch and r["mesh"] == "16x16")
     B = 128 // 16                      # decode_32k's batch over the data axis
-    expected = (row["params_bytes_per_device"]
-                + row["decode_32k_cache_bytes_per_device"] + B * 4 + B * 4)
-    got = res["memory"]["argument_bytes_per_device"]
-    print(json.dumps({"dryrun_decode_32k": res, "path_y_bytes": expected}))
-    if got != expected:
-        _fail(f"dryrun qwen3-0.6b decode_32k: argument bytes {got}, path "
-              f"(y) gives {expected}")
+    cache = row["decode_32k_cache_bytes_per_device"]
+    expected = row["params_bytes_per_device"] + cache + B * 4 + B * 4
+    mem = res["memory"]
+    print(json.dumps({"dryrun_decode_32k": res, "path_y_bytes": expected,
+                      "path_y_cache_bytes": cache}))
+    if mem["argument_bytes_per_device"] != expected:
+        _fail(f"dryrun {arch} decode_32k: argument bytes "
+              f"{mem['argument_bytes_per_device']}, path (y) gives "
+              f"{expected}")
+    if mem["alias_bytes_per_device"] != cache:
+        _fail(f"dryrun {arch} decode_32k: alias bytes "
+              f"{mem['alias_bytes_per_device']}, the cache's {cache}")
 
-    p = json.loads(_aa_wait("dryrun of path (p)", a3, 300)[-1])
+
+def dryrun_vs_card(specs: list, p_step_s: float, p_peak: int,
+                   host: dict) -> dict:
+    """Paths (aa) and (ab): (aa.1) / (ab.1) :func:`_dryrun_decode_32k` of
+    qwen3-0.6b / ``AB_ARCH``; (aa.2) / (ab) :func:`dryrun_vs_card_body` of
+    each in a subprocess, one after the other; (aa.3) the dry run of path
+    (p)'s step (:func:`dryrun_p_step`) beside (p)'s measured peak and step
+    time.  ``host`` holds (aa.1), (ab.1) and (aa.3), started by
+    :func:`start_host_dryruns`.  Returns (aa.2)'s and (ab)'s launches."""
+    from repro_torch.launch.dryrun import HBM_BW, PEAK_FLOPS
+
+    launches = {}
+    for path, arch in (("dryrun_vs_card", "qwen3-0.6b"),
+                       ("dryrun_vs_card_h2o", AB_ARCH)):
+        t0 = time.perf_counter()
+        lines = _aa_wait(f"dryrun_vs_card {arch}", _aa_subprocess(
+            f"c.dryrun_vs_card_body({arch!r})"), 300)
+        for ln in lines[:-1]:
+            print(ln)
+        launches[path] = json.loads(lines[-1])["dryrun_vs_card_launches"]
+        print(json.dumps({"phase_s": path, "s": time.perf_counter() - t0}))
+    _dryrun_decode_32k(specs, "qwen3-0.6b", host["aa1"])
+    _dryrun_decode_32k(specs, AB_ARCH, host["ab1"])
+
+    p = json.loads(_aa_wait("dryrun of path (p)", host["aa3"], 300)[-1])
     roof = {"compute_s": p["stats"]["dot_flops"] / PEAK_FLOPS,
             "memory_s": p["stats"]["traffic_bytes"] / HBM_BW}
     peak = p["memory"]["argument_bytes_per_device"] + \
@@ -3465,7 +3506,7 @@ def dryrun_vs_card(specs: list, p_step_s: float, p_peak: int,
                       "peak_bytes_p": p_peak, "peak_ratio": peak / p_peak,
                       "roofline": roof, "step_s_p": p_step_s,
                       "step_over_roofline": p_step_s / max(roof.values())}))
-    return {"dryrun_vs_card": launches}
+    return launches
 
 
 def sharded_restore_body(ckpt: str) -> None:

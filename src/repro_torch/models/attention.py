@@ -164,18 +164,39 @@ def project_qkv(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
         # on DTensors the weights are laid out by head first, so that each
         # device projects its own heads (XLA moves the constraint on q / k
         # / v into the product)
+        e = 1
         if mode == "padded":
             ws = _padded_weights(cfg, p)
         else:
+            # a device's heads within one KV group (h2o-danube3's 2 of G 4)
+            # share one copy of the group's k / v, widened to them after
+            # the product: each device projects its KV head once
             G = cfg.n_heads // cfg.n_kv_heads
+            per_dev = cfg.n_heads // _model_axis()
+            e = per_dev if G % per_dev == 0 else 1
             ws = (p["wq"].reshape(cfg.d_model, cfg.n_heads, Dh),
-                  *(p[w].repeat_interleave(G, 1) for w in ("wk", "wv")))
+                  *(p[w].repeat_interleave(G // e, 1) for w in ("wk", "wv")))
         wq, wk, wv = (constrain(w, (None, "heads", None)) for w in ws)
         q = constrain(torch.einsum("bld,dhe->bhle", x, wq), heads)[:, :, None]
         k, v = _kv_rows(cfg, dict(p, wk=wk, wv=wv), x, positions, heads)
+        if e > 1:
+            B, C, L, _ = k.shape
+            k, v = (t[:, :, None].expand(B, C, e, L, Dh).reshape(
+                B, C * e, L, Dh) for t in (k, v))
     else:
-        q = constrain(torch.einsum("bld,dkgh->bkglh", x, p["wq"]),
-                      ("batch", "kv_heads", "qgroups", "seq", None))
+        m = _model_axis()
+        if is_dtensor(x) and cfg.n_kv_heads % m and (
+                cfg.n_heads // cfg.n_kv_heads) % m == 0:
+            # query groups on the model axis (llama3's G 16 over 16): the
+            # product with the groups outermost, so that a shard of them
+            # stays a plain shard when the einsum flattens (G, KV, Dh) and
+            # each device projects its own groups (with KV outermost
+            # ``DTensor`` gathers ``wq`` and every device projects them all)
+            q = torch.einsum("bld,dgkh->bgklh", x,
+                             p["wq"].transpose(1, 2)).transpose(1, 2)
+        else:
+            q = torch.einsum("bld,dkgh->bkglh", x, p["wq"])
+        q = constrain(q, ("batch", "kv_heads", "qgroups", "seq", None))
         k, v = _kv_rows(cfg, p, x, positions)
         if mode == "flat":
             B, KV, G, L, _ = q.shape
@@ -223,8 +244,9 @@ def output_proj(cfg, p: dict, o: torch.Tensor,
         wo = p["wo"].reshape(H, Dh, D)
         if mode == "padded":
             wo = F.pad(wo, (0, 0, 0, 0, 0, _pad_heads_to(cfg) - H))
-        else:
-            wo = constrain(wo, ("heads", None, None))
+        # laid out by head, as o: each device multiplies its own heads, and
+        # so does the product's backward
+        wo = constrain(wo, ("heads", None, None))
         if is_dtensor(o):
             # one product over (H, Dh), heads outermost: a shard of the
             # heads stays a plain shard (einsum's flattening would stride it)
@@ -233,6 +255,14 @@ def output_proj(cfg, p: dict, o: torch.Tensor,
                 @ wo.reshape(Hp * Dh, D)
         else:
             out = torch.einsum("bhld,hdm->blm", o[:, :, 0], wo)
+    elif is_dtensor(o) and o.shape[-1] % _model_axis():
+        # a DTensor's einsum lays a partial sum over the model axis out on
+        # Dh before it flattens (KV, G, Dh); a Dh that the axis does not
+        # divide (h2o-danube3's 120 on 16) cannot flatten so.  One product
+        # over (KV, G, Dh), heads outermost, as the reference's program has
+        B, KV, G, L, Dh = o.shape
+        out = o.permute(0, 3, 1, 2, 4).reshape(B, L, KV * G * Dh) \
+            @ p["wo"].reshape(KV * G * Dh, -1)
     else:
         if mode == "flat":
             o = o.reshape(o.shape[0], *p["wo"].shape[:2], *o.shape[3:])

@@ -165,11 +165,16 @@ def mamba_forward(cfg, pr: dict, u: torch.Tensor, chunk: int = 256,
     x, Bm, Cm = xc[..., :di], xc[..., di:di + n], xc[..., di + n:]
     x = constrain(x, ("batch", "seq", "inner"))
 
-    dt = F.softplus(dt.to(torch.float32) + pr["dt_bias"])
+    # dt's heads laid out as x's, and y's (so its gradient's) as well, as
+    # XLA carries x's constraint: each device runs the chunked SSD and its
+    # backward on its own heads
+    heads = ("batch", "seq", "inner")
+    dt = constrain(F.softplus(dt.to(torch.float32) + pr["dt_bias"]), heads)
     A = -torch.exp(pr["A_log"])
     xh = x.reshape(B_, L, h, p).to(torch.float32)
     y, final = ssd_chunked(xh, dt, A, Bm.to(torch.float32),
                            Cm.to(torch.float32), chunk)
+    y = constrain(y, heads + (None,))
     y = y + pr["D"][None, None, :, None] * xh
     out = constrain(_gated_out(cfg, pr, y.reshape(B_, L, di), z, u.dtype),
                     ("batch", "seq", "embed"))

@@ -138,22 +138,41 @@ def head_logits(cfg, params: Params, x: torch.Tensor) -> torch.Tensor:
     """Final norm + LM head (tied: ``x @ embed.T``): (B, L, D) -> (B, L,
     V)."""
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    w = unshard_fsdp(params["embed"].T if cfg.tied_embeddings
-                     else params["lm_head"])
+    w = params["embed"].T if cfg.tied_embeddings else params["lm_head"]
+    if gathers_zero(x):
+        w = unshard_fsdp(w)
     return constrain(softcap(x @ w.to(x.dtype), cfg.final_softcap),
                      ("batch", "seq", "vocab"))
 
 
-def period_params(params: Params, pi: int, dtype) -> tuple:
+def gathers_zero(x: torch.Tensor) -> bool:
+    """Whether a step on activations ``x`` gathers its weights' ZeRO shards
+    (the ``fsdp`` binding of :func:`~repro_torch.sharding.rules.
+    param_sharding`) before use: yes, unless ``x`` is a ``DTensor`` whose
+    rows leave the data axis unbound (a batch of one, ``long_500k``).  Then
+    each data rank keeps its shard of a weight and computes its share of a
+    product over it, the partial sums reduced after, as the reference's
+    program does, where a gathered weight would have every data rank
+    compute the whole product."""
+    if not is_dtensor(x):
+        return True
+    names = x.device_mesh.mesh_dim_names
+    return ("data" not in names
+            or not x.placements[names.index("data")].is_replicate())
+
+
+def period_params(params: Params, pi: int, dtype,
+                  gather: bool = True) -> tuple:
     """Period ``pi``'s block params: views into the stacked leaves, cast to
-    the compute dtype (a no-op view when it already matches); a
-    ``DTensor`` leaf's ZeRO shards gathered (:func:`~repro_torch.sharding.
-    rules.unshard_fsdp`)."""
+    the compute dtype (a no-op view when it already matches); with
+    ``gather`` a ``DTensor`` leaf's ZeRO shards gathered
+    (:func:`~repro_torch.sharding.rules.unshard_fsdp`; see
+    :func:`gathers_zero`)."""
     def one(t):
         if isinstance(t, dict):
             return {k: one(v) for k, v in t.items()}
-        return unshard_fsdp(t[pi].to(dtype) if t.is_floating_point()
-                            else t[pi])
+        t = t[pi].to(dtype) if t.is_floating_point() else t[pi]
+        return unshard_fsdp(t) if gather else t
     return tuple(one(bp) for bp in params["periods"])
 
 
@@ -266,8 +285,10 @@ def decode_step(cfg, params: Params, cache: tuple, tokens: torch.Tensor,
     """
     dtype = dtype_of(cfg.compute_dtype)
     x = embed_inputs(cfg, params, tokens)
+    gather = gathers_zero(x)
     for pi in range(cfg.n_periods):
-        for blk, bp, c in zip(cfg.period, period_params(params, pi, dtype),
+        for blk, bp, c in zip(cfg.period,
+                              period_params(params, pi, dtype, gather),
                               cache):
             x, _ = block_decode(cfg, blk, bp, x,
                                 type(c)(*(f[pi] for f in c)), pos)
