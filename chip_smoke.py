@@ -167,6 +167,19 @@ and nothing falls back to the CPU):
    -m repro_torch.launch.dryrun --arch h2o-danube3-4b --shape
    decode_32k`` on 16 x 16 (started with (aa.1)), whose argument bytes
    must equal path (y)'s and whose alias bytes its cache's.
+12. An SPLS step's dry run against the card, path (ac): h2o-danube3-4b
+   as (ab), with the dry run's SPLS configuration, a prefill of B 1 x L
+   8192 (the chunked plan's row-block loop and the chunked attention's KV
+   chunks run); its one-rank dry run, loops counted by trip count,
+   against the same step on the card under the dry run's routes (argument
+   bytes and dot FLOPs equal, peak within 25 %); then the step with
+   ``compute_backend="packed_cuda"`` (the packed FFN rows through B1 and
+   B2), timed beside the roofline, its logits held against
+   ``packed_torch`` on the same inputs (1 bf16 ulp of max |plain|; the
+   control runs the FFN on every row); and (ac.1), ``python -m
+   repro_torch.launch.dryrun --arch h2o-danube3-4b --shape prefill_32k
+   --spls --multi-pod`` (started with (aa.1)), whose argument bytes must
+   equal :data:`AC1_ARGUMENT_BYTES`.
 
 The last lines are the ``{"kernels": [...]}`` line, the card's
 ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
@@ -2797,15 +2810,21 @@ class _Picks:
         return None
 
 
-def _sampled(K, Engine, cfg, params, scfg, prompts, check=False) -> tuple:
-    """One run of ``Engine`` on ``prompts`` (16 new tokens each); its
+# path (t)'s new tokens per request (cut from 16 for the script's time limit)
+T_NEW = 8
+
+
+def _sampled(K, Engine, cfg, params, scfg, prompts, check=False,
+             max_new: int = 16) -> tuple:
+    """One run of ``Engine`` on ``prompts`` (``max_new`` new tokens
+    each); its
     tokens, launches and wall, and with ``check`` the picks' records
     (:class:`_Picks`, greedy ones too, whose replay then lies inside the
     wall)."""
     from repro_torch.serving import Request
 
     eng = Engine(cfg, params, scfg)
-    reqs = [Request(rid=i, prompt=p, max_new_tokens=16)
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=max_new)
             for i, p in enumerate(prompts)]
     for r in reqs:
         eng.submit(r)
@@ -2827,7 +2846,7 @@ def _sampled(K, Engine, cfg, params, scfg, prompts, check=False) -> tuple:
 def qwen3_sampled_serving(K, params) -> dict:
     """Path (t): the weights (s) trained, served at full width in float32
     by temperature sampling (T 0.8, seed 0): 2 prompts of 384 tokens from
-    (i)'s traffic, 16 new tokens each, through the paged engine with SPLS
+    (i)'s traffic, :data:`T_NEW` new tokens each, through the paged engine with SPLS
     (``packed_cuda`` + ``cuda_paged_decode``: B1 / B2 / B3) and the dense
     engine (``cuda_flash`` + ``cuda_flash_decode``: B4 / B5), each against
     the same run on the plain backends: tokens equal but at printed
@@ -2864,7 +2883,7 @@ def qwen3_sampled_serving(K, params) -> dict:
     for name, (Engine, kcfg, pcfg, kscfg, pscfg, must) in engines.items():
         run = lambda c, sc, check=False, **kw: _sampled(
             K, Engine, c, params, ServeConfig(**{**sc, **hot, **kw}),
-            prompts, check)
+            prompts, check, T_NEW)
         # the checked runs warm library handles and builds; the timed
         # ones repeat them without the replay
         toks, _, _, picks = run(kcfg, kscfg, check=True)
@@ -3226,19 +3245,12 @@ def production_specs_table() -> None:
     print(json.dumps({"production_specs": rows}))
 
 
-def production_specs() -> list:
-    """Path (y): :func:`production_specs_table` in a subprocess, which
-    keeps the ``fake`` default process group out of the other phases.
-    Returns the table's rows."""
-    root = Path(__file__).resolve().parent
-    out = subprocess.run(
-        [sys.executable, "-c", "import chip_smoke as c; "
-         "c.sys.path.insert(0, 'src'); c.production_specs_table()"],
-        cwd=root, capture_output=True, text=True, timeout=300)
-    if out.returncode:
-        _fail(f"production_specs: exit {out.returncode}: "
-              f"{out.stderr[-2000:]}")
-    line = out.stdout.strip().splitlines()[-1]
+def production_specs(proc) -> list:
+    """Path (y): :func:`production_specs_table` in a subprocess (``proc``,
+    started by :func:`start_host_dryruns`), which keeps the ``fake``
+    default process group out of the other phases.  Returns the table's
+    rows."""
+    line = _aa_wait("production_specs", proc, 300)[-1]
     print(line)
     return json.loads(line)["production_specs"]
 
@@ -3268,11 +3280,37 @@ def _aa_inputs(cfg, kind: str, L: int, B: int, gen) -> tuple:
             torch.full((B,), L - 1, dtype=torch.int32, device="cuda"))
 
 
-def dryrun_vs_card_body(arch: str = "qwen3-0.6b") -> None:
+def one_rank_dryruns() -> None:
+    """The host's part of paths (aa.2), (ab) and (ac), run in a process of
+    its own while the card trains: the dry runs of their steps on a
+    one-rank mesh (a ``fake`` group of one rank), printed as one JSON line
+    ``{"<arch> <kind>": analyze_step's result}``, (ac)'s under ``"ac"``."""
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.dryrun import (analyze_step, fake_group,
+                                           spls_config)
+    from repro_torch.launch.mesh import make_cpu_mesh
+
+    out = {}
+    with fake_group(1):
+        mesh = make_cpu_mesh(1, 1)
+        for arch in ("qwen3-0.6b", AB_ARCH):
+            for kind, L, B in AA_CELLS:
+                out[f"{arch} {kind}"] = analyze_step(
+                    get_config(arch), ShapeCfg(f"aa_{kind}", L, B, kind),
+                    mesh)
+        kind, L, B = AC_CELL
+        out["ac"] = analyze_step(spls_config(get_config(AB_ARCH)),
+                                 ShapeCfg("ac", L, B, kind), mesh)
+    print(json.dumps(out))
+
+
+def dryrun_vs_card_body(arch: str, cells, dry: dict) -> None:
     """The body of path (aa.2) (``arch`` qwen3-0.6b) and of path (ab)
-    (:data:`AB_ARCH`), run in a process of its own: the dry run of
-    ``arch``'s prefill (B 2 x L 4096) and decode step (B 8 against a
-    4096-token cache) on a one-rank mesh (a ``fake`` group of one rank,
+    (:data:`AB_ARCH`), run in a process of its own: the
+    dry runs (``dry``, :func:`one_rank_dryruns`) of ``arch``'s ``cells``
+    -- a prefill (B 2 x L 4096), a decode step (B 8 against a 4096-token
+    cache) -- on a one-rank mesh (a ``fake`` group of one rank,
     destroyed after), then the same steps for real on the card under the
     dry run's routes (``route_as("cpu")``): the real inputs' bytes must
     equal the dry run's argument bytes and ``FlopCounterMode``'s count of
@@ -3291,25 +3329,18 @@ def dryrun_vs_card_body(arch: str = "qwen3-0.6b") -> None:
     from torch.utils.flop_counter import FlopCounterMode
 
     from repro_torch import kernels as K
-    from repro_torch.configs.base import ShapeCfg
     from repro_torch.configs.registry import get_config
     from repro_torch.device import resolve_device, route_as
-    from repro_torch.launch.dryrun import (HBM_BW, PEAK_FLOPS,
-                                           analyze_step, fake_group)
-    from repro_torch.launch.mesh import make_cpu_mesh
+    from repro_torch.launch.dryrun import HBM_BW, PEAK_FLOPS
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.tree import leaves, tree_map
 
     resolve_device()
     cfg = get_config(arch)
-    with fake_group(1):
-        mesh = make_cpu_mesh(1, 1)
-        dry = {kind: analyze_step(cfg, ShapeCfg(f"aa_{kind}", L, B, kind),
-                                  mesh) for kind, L, B in AA_CELLS}
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows, launches, bad = [], {}, []
-    for kind, L, B in AA_CELLS:
-        d = dry[kind]
+    for kind, L, B in cells:
+        d = dry[f"{arch} {kind}"]
         mem, stats = d["memory"], d["stats"]
         _free()
         torch.cuda.synchronize()
@@ -3394,31 +3425,152 @@ def dryrun_vs_card_body(arch: str = "qwen3-0.6b") -> None:
         raise SystemExit(f"dryrun_vs_card {arch}: {bad}")
 
 
+# path (ac): an SPLS prefill past the chunked-plan threshold
+AC_CELL = ("prefill", 8192, 1)
+# (ac.1)'s argument bytes per device: ``python -m repro_torch.launch.dryrun
+# --arch h2o-danube3-4b --shape prefill_32k --spls --multi-pod`` on this
+# repository's CPU host (torch 2.13), equal to the reference's
+AC1_ARGUMENT_BYTES = 2154593792
+
+
+def dryrun_vs_card_spls_body(d: dict) -> None:
+    """The body of path (ac), run in a process of its own:
+    :data:`AB_ARCH` with the dry run's SPLS configuration
+    (:func:`repro_torch.launch.dryrun.spls_config`), a prefill of
+    :data:`AC_CELL` -- at 8192 tokens the chunked plan (16 row blocks of
+    512, 12 bisection steps each) and the chunked attention (3 KV chunks
+    of 2048) run.  Its dry run on a one-rank mesh (``d``,
+    :func:`one_rank_dryruns`) counts those loops by trip count; the same step on the card under the dry run's routes
+    (``route_as("cpu")``: ``packed_torch``, ``torch_chunked``) runs every
+    iteration, and must give the dry run's argument bytes and dot FLOPs
+    exactly (``FlopCounterMode``), its peak within 25 % of the predicted
+    one.  Then the step with ``compute_backend="packed_cuda"`` (B1 and B2
+    compute the packed FFN rows; the attention stays ``torch_chunked``, as
+    every route takes a chunked plan there), timed beside the dry run's
+    roofline, its logits held against ``packed_torch``'s on the same
+    inputs (1 bf16 ulp of max |plain|); the control computes the FFN on
+    every row (FFN sparsity off).  The reference is a ``packed_torch`` step
+    of its own, outside ``FlopCounterMode`` and ``route_as``: the counted
+    step's logits differed from ``packed_cuda``'s by 1.1 (on an H100,
+    torch 2.11), where this one's agree.  Prints one JSON line with the
+    launches."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch import kernels as K
+    from repro_torch.configs.registry import get_config
+    from repro_torch.device import resolve_device, route_as
+    from repro_torch.launch.dryrun import HBM_BW, PEAK_FLOPS, spls_config
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.tree import leaves
+
+    resolve_device()
+    cfg = spls_config(get_config(AB_ARCH))
+    kind, L, B = AC_CELL
+    mem, stats = d["memory"], d["stats"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    _free()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    args = _aa_inputs(cfg, kind, L, B, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    arg_bytes = sum(t.numel() * t.element_size() for t in leaves(args)
+                    if isinstance(t, torch.Tensor))
+    with route_as("cpu"), FlopCounterMode(display=False) as fc:
+        out = make_prefill_step(cfg)(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    predicted = mem["argument_bytes_per_device"] + mem["temp_bytes_per_device"]
+    step = lambda c, backend: make_prefill_step(dataclasses.replace(
+        c, compute_backend=backend))(*args)[0]
+    # the packed_torch step also warms the same plan and attention; B1 and
+    # B2 ran on earlier paths
+    ref = step(cfg, "packed_torch")
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = step(cfg, "packed_cuda")
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    n = K.launch_counts()
+    control = step(dataclasses.replace(cfg, spls=dataclasses.replace(
+        cfg.spls, ffn_sparsity=False)), "packed_cuda")
+    roof = {"compute_s": stats["dot_flops"] / PEAK_FLOPS,
+            "memory_s": stats["traffic_bytes"] / HBM_BW}
+    row = {"dryrun_vs_card_spls": f"{AB_ARCH} SPLS {kind} B {B} x L {L}",
+           "argument_bytes_dry": mem["argument_bytes_per_device"],
+           "argument_bytes_card": arg_bytes,
+           "dot_flops_dry": stats["dot_flops"],
+           "flop_counter_card": float(fc.get_total_flops()),
+           "temp_bytes_dry": mem["temp_bytes_per_device"],
+           "peak_bytes_predicted": predicted, "peak_bytes_card": peak,
+           "peak_ratio": predicted / peak, "packed_cuda_step_s": step_s,
+           "kernel_launches": n, "roofline_dry": roof,
+           "step_over_roofline": step_s / max(roof.values()),
+           "trace_s": d["trace_s"], "device": _smi()}
+    bad = []
+    try:
+        _hold_logits(f"dryrun_vs_card_spls {AB_ARCH}", "logits", got, ref,
+                     1, row, control, "control_ffn_dense")
+    except SystemExit as e:
+        bad.append(str(e))
+    print(json.dumps(row))
+    if arg_bytes != mem["argument_bytes_per_device"]:
+        bad.append(f"argument bytes {arg_bytes} on the card, "
+                   f"{mem['argument_bytes_per_device']} dry")
+    if row["flop_counter_card"] != stats["dot_flops"]:
+        bad.append(f"dot FLOPs {row['flop_counter_card']} on the card, "
+                   f"{stats['dot_flops']} dry")
+    if abs(predicted - peak) > 0.25 * peak:
+        bad.append(f"predicted peak {predicted} bytes, the card's {peak}")
+    launches = {k: n[k] for k in ("gathered_matmul", "gather_rows")}
+    if not all(launches.values()):
+        bad.append(f"B1 / B2 not launched: {n}")
+    print(json.dumps({"dryrun_vs_card_launches": launches}))
+    if bad:
+        raise SystemExit(f"dryrun_vs_card_spls {AB_ARCH}: {bad}")
+
+
+# one OpenMP thread for each subprocess: the host pool's dry runs overlap
+# the timed card phases, and idle OpenMP threads of several processes spin
+# against each other (as ``dryrun_all`` runs its cells)
+_ONE_THREAD = {"OMP_NUM_THREADS": "1"}
+
+
 def _aa_subprocess(code: str):
     root = Path(__file__).resolve().parent
     return subprocess.Popen(
         [sys.executable, "-c", "import chip_smoke as c; "
          "c.sys.path.insert(0, 'src'); " + code], cwd=root,
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-
-
-def _dryrun_cli(arch: str, shape: str):
-    return subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-         "--shape", shape], cwd=Path(__file__).resolve().parent,
-        env=dict(os.environ, PYTHONPATH="src"), stdout=subprocess.PIPE,
+        env=dict(os.environ, **_ONE_THREAD), stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True)
 
 
+def _dryrun_cli(arch: str, shape: str, *flags: str):
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, *flags], cwd=Path(__file__).resolve().parent,
+        env=dict(os.environ, PYTHONPATH="src", **_ONE_THREAD),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
 def start_host_dryruns() -> dict:
-    """Paths (aa)'s and (ab)'s runs that use the host only, started early
-    so they overlap the card's training phases: (aa.1) and (ab.1) ``python
-    -m repro_torch.launch.dryrun --arch qwen3-0.6b`` (``AB_ARCH``) ``--shape
-    decode_32k``, and (aa.3) :func:`dryrun_p_step`.  :func:`dryrun_vs_card`
-    reads them."""
+    """The runs that use the host only, started early so they overlap the
+    card's training phases: (aa.1) and (ab.1) ``python -m
+    repro_torch.launch.dryrun --arch qwen3-0.6b`` (``AB_ARCH``) ``--shape
+    decode_32k``, (ac.1) ``AB_ARCH``'s ``prefill_32k --spls
+    --multi-pod``, (aa.3) :func:`dryrun_p_step`, the one-rank dry runs of
+    (aa.2), (ab) and (ac) (:func:`one_rank_dryruns`) and path (y)'s table
+    (:func:`production_specs_table`).  :func:`production_specs` and
+    :func:`dryrun_vs_card` read them."""
     return {"aa1": _dryrun_cli("qwen3-0.6b", "decode_32k"),
             "ab1": _dryrun_cli(AB_ARCH, "decode_32k"),
-            "aa3": _aa_subprocess("c.dryrun_p_step()")}
+            "ac1": _dryrun_cli(AB_ARCH, "prefill_32k", "--spls",
+                               "--multi-pod"),
+            "aa3": _aa_subprocess("c.dryrun_p_step()"),
+            "dry": _aa_subprocess("c.one_rank_dryruns()"),
+            "y": _aa_subprocess("c.production_specs_table()")}
 
 
 def _aa_wait(name: str, proc, timeout: int) -> list:
@@ -3476,26 +3628,47 @@ def _dryrun_decode_32k(specs: list, arch: str, proc) -> None:
 
 def dryrun_vs_card(specs: list, p_step_s: float, p_peak: int,
                    host: dict) -> dict:
-    """Paths (aa) and (ab): (aa.1) / (ab.1) :func:`_dryrun_decode_32k` of
-    qwen3-0.6b / ``AB_ARCH``; (aa.2) / (ab) :func:`dryrun_vs_card_body` of
-    each in a subprocess, one after the other; (aa.3) the dry run of path
-    (p)'s step (:func:`dryrun_p_step`) beside (p)'s measured peak and step
-    time.  ``host`` holds (aa.1), (ab.1) and (aa.3), started by
-    :func:`start_host_dryruns`.  Returns (aa.2)'s and (ab)'s launches."""
+    """Paths (aa), (ab) and (ac): (aa.1) / (ab.1) :func:`_dryrun_decode_32k`
+    of qwen3-0.6b / ``AB_ARCH``; (aa.2) / (ab) :func:`dryrun_vs_card_body`
+    of each and (ac) :func:`dryrun_vs_card_spls_body`, each in a
+    subprocess, one after the other; (ac.1)'s argument bytes; (aa.3) the
+    dry run of path (p)'s step (:func:`dryrun_p_step`) beside (p)'s
+    measured peak and step time.  ``host`` holds (aa.1), (ab.1), (ac.1)
+    and (aa.3), started by :func:`start_host_dryruns`.  Returns (aa.2)'s,
+    (ab)'s and (ac)'s launches."""
     from repro_torch.launch.dryrun import HBM_BW, PEAK_FLOPS
 
     launches = {}
-    for path, arch in (("dryrun_vs_card", "qwen3-0.6b"),
-                       ("dryrun_vs_card_h2o", AB_ARCH)):
+    dry = json.loads(_aa_wait("one-rank dry runs", host["dry"], 300)[-1])
+    for path, arch, cells in (("dryrun_vs_card", "qwen3-0.6b", AA_CELLS),
+                              ("dryrun_vs_card_h2o", AB_ARCH, AA_CELLS)):
         t0 = time.perf_counter()
         lines = _aa_wait(f"dryrun_vs_card {arch}", _aa_subprocess(
-            f"c.dryrun_vs_card_body({arch!r})"), 300)
+            f"c.dryrun_vs_card_body({arch!r}, {cells!r}, {dry!r})"), 300)
         for ln in lines[:-1]:
             print(ln)
         launches[path] = json.loads(lines[-1])["dryrun_vs_card_launches"]
         print(json.dumps({"phase_s": path, "s": time.perf_counter() - t0}))
+    t0 = time.perf_counter()
+    lines = _aa_wait(f"dryrun_vs_card_spls {AB_ARCH}", _aa_subprocess(
+        f"c.dryrun_vs_card_spls_body({dry['ac']!r})"), 300)
+    for ln in lines[:-1]:
+        print(ln)
+    launches["dryrun_vs_card_spls"] = json.loads(
+        lines[-1])["dryrun_vs_card_launches"]
+    print(json.dumps({"phase_s": "dryrun_vs_card_spls",
+                      "s": time.perf_counter() - t0}))
     _dryrun_decode_32k(specs, "qwen3-0.6b", host["aa1"])
     _dryrun_decode_32k(specs, AB_ARCH, host["ab1"])
+    ac1 = json.loads("\n".join(_aa_wait(
+        f"dryrun {AB_ARCH} prefill_32k --spls --multi-pod", host["ac1"],
+        300)))
+    print(json.dumps({"dryrun_prefill_32k_spls_multi_pod": ac1,
+                      "argument_bytes_host": AC1_ARGUMENT_BYTES}))
+    if ac1["memory"]["argument_bytes_per_device"] != AC1_ARGUMENT_BYTES:
+        _fail(f"dryrun {AB_ARCH} prefill_32k --spls --multi-pod: argument "
+              f"bytes {ac1['memory']['argument_bytes_per_device']}, this "
+              f"repository's host gives {AC1_ARGUMENT_BYTES}")
 
     p = json.loads(_aa_wait("dryrun of path (p)", host["aa3"], 300)[-1])
     roof = {"compute_s": p["stats"]["dot_flops"] / PEAK_FLOPS,
@@ -3937,7 +4110,7 @@ def _phases(K, ptxas: dict, smi: str, host: dict) -> int:
         paths.update(phase(K))
         print(json.dumps({"phase_s": name, "s": time.perf_counter() - t0}))
     t0 = time.perf_counter()
-    specs = production_specs()
+    specs = production_specs(host["y"])
     print(json.dumps({"phase_s": "production_specs",
                       "s": time.perf_counter() - t0}))
     t0 = time.perf_counter()

@@ -40,7 +40,8 @@ def mfi_ffn_sparsity(leader: torch.Tensor, w: int, f_threshold: int,
     window_base = (tok // w) * w
     mfi_global = torch.clamp(window_base + mfi_off, max=L - 1)
 
-    similar = (mfi_votes >= f_threshold) & (mfi_global != tok)
+    # ``~ ==``, not ``!=``: torch 2.11's DTensor has no rule for ``ne``
+    similar = (mfi_votes >= f_threshold) & ~(mfi_global == tok)
     ffn_leader = torch.where(similar, mfi_global, tok)
     for _ in range(n_pointer_jumps):
         ffn_leader = torch.gather(ffn_leader, -1, ffn_leader.long())

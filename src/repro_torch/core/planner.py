@@ -49,7 +49,8 @@ import torch.nn.functional as F
 from repro_torch.sharding.logical import arange_like, constrain, is_dtensor
 
 from .predict import head_scores, predict_qk, predict_qk_pre
-from .quantizers import PROJECTORS, symmetric_quantize
+from .quantizers import (PROJECTORS, quantize_dequantize,
+                         symmetric_quantize)
 from .spls import SPLSConfig, SparsityPlan
 from .mfi import mfi_ffn_sparsity
 from .similarity import local_similarity
@@ -127,15 +128,6 @@ class PlanContext:
         Dh)`` / ``kh (B, KV, L, Dh)``."""
         KV, G, Dh = self.KV, self.G, self.Dh
         B, L = qp.shape[0], qp.shape[1]
-        if is_dtensor(qp) and self.mode == "flat":
-            # the reference's flat heads (H, 1), laid out by head: a
-            # DTensor's heads shard over the model axis, as the attention's
-            qh = constrain(qp.reshape(B, L, KV * G, Dh).permute(0, 2, 1, 3),
-                           ("batch", "heads", "seq", None))[:, :, None]
-            kh = constrain(kp.reshape(B, L, KV, Dh).permute(0, 2, 1, 3)
-                           .repeat_interleave(G, 1),
-                           ("batch", "heads", "seq", None))
-            return qh, kh
         qh = qp.reshape(B, L, KV, G, Dh).permute(0, 2, 3, 1, 4)
         kh = kp.reshape(B, L, KV, Dh).permute(0, 2, 1, 3)
         return qh, kh
@@ -146,11 +138,65 @@ class PlanContext:
         """Quantized prediction on the normalized block input -> ``(qh (B,
         KV, G, L, Dh), kh (B, KV, L, Dh))``.  ``act_axis=-1`` is the
         streaming-reproducible numerics (per-token scales); ``None`` the
-        offline per-tensor variant of the exact and scan plans."""
+        offline per-tensor variant of the exact and scan plans.  On
+        ``DTensor``s the heads are laid out before the products
+        (:meth:`_predict_by_head`)."""
+        if is_dtensor(xn):
+            return self._predict_by_head(p, xn, act_axis)
         wq, wk = self._weights2d(p)
         qp, kp = predict_qk(xn, wq, wk, self.scfg.quant_method,
                             self.scfg.quant_bits, act_axis=act_axis)
         return self._layout(qp, kp)
+
+    def _predict_by_head(self, p: dict, xn: torch.Tensor,
+                         act_axis: Optional[int]
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """:meth:`predict_heads` on ``DTensor``s (the dry run): the
+        quantized weights are laid out by head before the products, so
+        that each device projects only its own heads' ``wq`` / ``wk``
+        columns, as the attention's projections do (the reference's XLA
+        moves the head constraint on the prediction into the product).
+        Flat heads ``qh (B, H, 1, L, Dh)`` / ``kh (B, H, L, Dh)`` (the KV
+        weights repeated per device, the product widened after, as
+        :func:`~repro_torch.models.attention.project_qkv`'s); structured
+        ``(B, KV, G, L, Dh)`` / ``(B, KV, L, Dh)``, the query groups
+        outermost in the product where they, not KV, shard.  The scales
+        are the plain path's: per tensor, or per token over every head
+        (``act_axis=-1``)."""
+        from repro_torch.models.attention import (_model_axis,
+                                                  flat_kv_share,
+                                                  widen_heads)
+
+        method, bits = self.scfg.quant_method, self.scfg.quant_bits
+        KV, G, Dh, D = self.KV, self.G, self.Dh, self.D
+        quant = lambda t, axis=None: quantize_dequantize(t, method, bits,
+                                                         axis=axis)
+        xq = quant(xn, act_axis)
+        wq, wk = quant(p["wq"]), quant(p["wk"])     # per-tensor scales
+        per_token = act_axis is not None
+        if self.mode == "flat":
+            heads = ("batch", "heads", "seq", None)
+            e = flat_kv_share(KV * G, G)
+            wq = constrain(wq.reshape(D, KV * G, Dh), (None, "heads", None))
+            wk = constrain(wk.repeat_interleave(G // e, 1),
+                           (None, "heads", None))
+            q = constrain(torch.einsum("bld,dhe->bhle", xq, wq), heads)
+            k = constrain(torch.einsum("bld,dhe->bhle", xq, wk), heads)
+            tok = (1, 3) if per_token else None
+            # a repeated head changes no scale: the max is the same
+            return (quant(q, tok)[:, :, None],
+                    widen_heads(quant(k, tok), e))
+        m = _model_axis()
+        if KV % m and G % m == 0:
+            q = torch.einsum("bld,dgkh->bgklh", xq,
+                             wq.transpose(1, 2)).transpose(1, 2)
+        else:
+            q = torch.einsum("bld,dkgh->bkglh", xq, wq)
+        q = constrain(q, ("batch", "kv_heads", "qgroups", "seq", None))
+        k = constrain(torch.einsum("bld,dkh->bklh", xq, wk),
+                      ("batch", "kv_heads", "seq", None))
+        return (quant(q, (1, 2, 4) if per_token else None),
+                quant(k, (1, 3) if per_token else None))
 
     def encode_pred_qk(self, p: dict, xn: torch.Tensor):
         """Streaming prediction with the K side emitted as int8 codes.

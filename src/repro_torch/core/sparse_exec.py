@@ -20,6 +20,8 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.loops import scan
+
 from .spls import SparsityPlan
 
 __all__ = ["gather_rows", "pack_by_mask", "unpack_by_leader", "Compaction",
@@ -233,7 +235,10 @@ def spls_attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     m_run = torch.full_like(qp[..., 0], _NEG, dtype=torch.float32)
     l_run = torch.zeros_like(m_run)
     acc = torch.zeros_like(qp, dtype=torch.float32)
-    for c0 in range(0, Ck, kv_chunk):
+
+    def chunk(run, j):
+        m_run, l_run, acc = run
+        c0 = j * kv_chunk
         k_c, v_c = kp[..., c0:c0 + kv_chunk, :], vp[..., c0:c0 + kv_chunk, :]
         id_c = kv_perm[..., None, c0:c0 + kv_chunk]
         s = torch.matmul(qp, k_c.transpose(-1, -2)).float() * scale
@@ -252,7 +257,9 @@ def spls_attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         l_run = l_run * corr + p.sum(-1)
         acc = acc * corr[..., None] + torch.matmul(p.to(v_c.dtype),
                                                    v_c).float()
-        m_run = m_new
+        return (m_new, l_run, acc), None
+
+    (m_run, l_run, acc), _ = scan(chunk, (m_run, l_run, acc), Ck // kv_chunk)
     op = (acc / l_run.clamp(min=1e-9)[..., None]).to(q.dtype)
     return unpack_by_leader(op, q_slot, plan.q_leader)
 

@@ -19,7 +19,9 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.sharding.logical import arange_like
+from repro_torch.loops import scan
+from repro_torch.sharding.logical import (arange_like, from_local,
+                                         head_placements, is_dtensor)
 
 from .mfi import mfi_ffn_sparsity
 from .predict import head_scores
@@ -49,11 +51,15 @@ def bisect_topk_mask(pam32: torch.Tensor, k, n_iters: int = 12
     # the range must span only *valid* entries: the fill value would
     # otherwise eat every bisection step
     lo = torch.where(pam32 < -1e29, hi, pam32).amin(-1, keepdim=True)
-    for _ in range(n_iters):
+
+    def halve(lo_hi, _):
+        lo, hi = lo_hi
         mid = 0.5 * (lo + hi)
         cnt = (pam32 >= mid).sum(-1, keepdim=True)
-        lo = torch.where(cnt >= k, mid, lo)
-        hi = torch.where(cnt >= k, hi, mid)
+        return (torch.where(cnt >= k, mid, lo),
+                torch.where(cnt >= k, hi, mid)), None
+
+    (lo, _), _ = scan(halve, (lo, hi), n_iters)
     return pam32 >= lo
 
 
@@ -123,18 +129,34 @@ def plan_chunk(qh_blk: torch.Tensor, kh: torch.Tensor, *, k, row0,
     :data:`CAUSAL_FILL` and never voted for.
     """
     B, KVp, Gp, C, Dh = qh_blk.shape
-    mask, pam32 = _block_pam_mask(qh_blk, kh, k=k, row0=row0,
-                                  n_valid_rows=n_valid_rows, n_cols=n_cols,
-                                  causal=causal, scale=scale)
-    spa = torch.where(mask, pam32, torch.zeros_like(pam32))
-    sim = local_similarity(spa, window, s_threshold, valid_len=n_valid_rows)
-    leader = sim.leader + row0                      # block-local -> global
-    kv_any = mask.any(dim=-2)
-    leaders_h = sim.leader.reshape(B, KVp * Gp, C)  # block-local for MFI
+
+    def per_head(qh_blk, kh):
+        mask, pam32 = _block_pam_mask(qh_blk, kh, k=k, row0=row0,
+                                      n_valid_rows=n_valid_rows,
+                                      n_cols=n_cols, causal=causal,
+                                      scale=scale)
+        spa = torch.where(mask, pam32, torch.zeros_like(pam32))
+        sim = local_similarity(spa, window, s_threshold,
+                               valid_len=n_valid_rows)
+        return mask, sim.is_critical, sim.leader, mask.any(dim=-2)
+
+    if is_dtensor(qh_blk):
+        # every stage but MFI is local to a (batch, head) row: each device
+        # runs it on its own shards (op by op, DTensor would plan each)
+        mesh = qh_blk.device_mesh
+        head, kv = head_placements(qh_blk)
+        outs = per_head(qh_blk.redistribute(mesh, head).to_local(),
+                        kh.redistribute(mesh, kv).to_local())
+        mask, crit, lead, kv_any = (
+            from_local(t, mesh, head, (B, KVp, Gp, *t.shape[3:]))
+            for t in outs)
+    else:
+        mask, crit, lead, kv_any = per_head(qh_blk, kh)
+    leaders_h = lead.reshape(B, KVp * Gp, C)        # block-local for MFI
     ffn = mfi_ffn_sparsity(leaders_h, window, f_threshold)
-    return ChunkPlanBlock(mask=mask, q_critical=sim.is_critical,
-                          q_leader=leader, kv_any=kv_any,
-                          ffn_critical=ffn.is_critical,
+    return ChunkPlanBlock(mask=mask, q_critical=crit,
+                          q_leader=lead + row0,     # block-local -> global
+                          kv_any=kv_any, ffn_critical=ffn.is_critical,
                           ffn_leader=ffn.leader + row0)
 
 
@@ -177,18 +199,19 @@ def chunked_plan_scan(qh: torch.Tensor, kh: torch.Tensor, *, k_ratio: float,
                          f"({row_block}), and row_block of the window "
                          f"({window})")
     k = topk_count(L, k_ratio)
-    kv_keep = torch.zeros_like(qh[..., 0], dtype=torch.bool)
-    crit, lead, fcrit, flead = [], [], [], []
-    for r0 in range(0, L, row_block):
+
+    def block(kv_keep, i):
+        r0 = i * row_block
         pb = plan_chunk(qh[..., r0:r0 + row_block, :], kh, k=k, row0=r0,
                         n_valid_rows=row_block, n_cols=L,
                         s_threshold=s_threshold, window=window,
                         f_threshold=f_threshold, causal=causal, scale=scale)
-        kv_keep = kv_keep | pb.kv_any
-        crit.append(pb.q_critical)
-        lead.append(pb.q_leader)
-        fcrit.append(pb.ffn_critical)
-        flead.append(pb.ffn_leader)
+        return kv_keep | pb.kv_any, (pb.q_critical, pb.q_leader,
+                                     pb.ffn_critical, pb.ffn_leader)
+
+    kv_keep, ys = scan(block, torch.zeros_like(qh[..., 0], dtype=torch.bool),
+                       L // row_block)
+    crit, lead, fcrit, flead = zip(*ys)
     return ChunkedPlan(q_critical=torch.cat(crit, -1),
                        q_leader=torch.cat(lead, -1), kv_keep=kv_keep,
                        ffn_critical=torch.cat(fcrit, -1),

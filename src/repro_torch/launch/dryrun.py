@@ -55,7 +55,7 @@ from typing import Optional
 import torch
 
 __all__ = ["PEAK_FLOPS", "HBM_BW", "NVLINK_BW", "run_cell", "analyze_step",
-           "fake_group", "main"]
+           "spls_config", "fake_group", "main"]
 
 # one H100 SXM (NVIDIA's data sheet; dense, at its 700 W limit)
 PEAK_FLOPS = 989e12          # bf16 FLOP/s
@@ -79,6 +79,82 @@ def fake_group(world: int):
         yield
     finally:
         dist.destroy_process_group()
+
+
+# what ``DTensor``'s planner's ``get_next_state`` may read of its planner
+# for :func:`_memoized_redistribute_planner` to memoize it: the state in
+# the memo's key, and the class's stateless helpers
+_PLANNER_STATE = ("tensor_dimension", "cost_function",
+                  "strided_shard_placements_in_target",
+                  "partial_reduce_ops_in_target")
+_PLANNER_HELPERS = ("DistState", "_to_tuple")
+
+
+def _self_reads(fn) -> Optional[set]:
+    """The attributes that ``fn`` reads of its first argument, ``self``;
+    None where it may do more with ``self`` than read an attribute of it
+    (store one, hand it to a closure, pass it on)."""
+    import dis
+
+    code = fn.__code__
+    if "self" in code.co_cellvars:
+        return None
+    reads, prev = set(), None
+    for ins in dis.get_instructions(fn):
+        if prev is not None and prev.opname.startswith("LOAD_FAST") \
+                and prev.argval == "self":
+            if ins.opname != "LOAD_ATTR":
+                return None
+            reads.add(ins.argval)
+        prev = ins
+    return reads
+
+
+@contextlib.contextmanager
+def _memoized_redistribute_planner():
+    """Inside the block, each expansion of ``DTensor``'s redistribution
+    planner is memoized; on exit the planner is as it was.
+
+    To cost an op's candidate layouts ``DTensor`` plans the redistribution
+    from an input's layout to each candidate's; where a layout holds a
+    strided shard it searches the graph of layouts (Dijkstra, one search a
+    pair).  On the 3-axis multi-pod mesh the graph is large and each
+    search expands the same states again: one train step's planning took
+    hours of host time.  Here a planner expands each state once, keyed by
+    the planner and everything the expansion reads of it
+    (:data:`_PLANNER_STATE`: the target's strided shards and partial
+    reductions it has seen among them), and hands the same dict back: the
+    same states, costs and order, so the same plans
+    (``test_memoized_planner_gives_the_same_plans``).  A torch whose
+    ``get_next_state`` reads anything else of its planner is left as it
+    is."""
+    try:
+        from torch.distributed.tensor._redistribute import (
+            DTensorRedistributePlanner as Planner)
+    except ImportError:
+        yield
+        return
+    expand = Planner.__dict__.get("get_next_state")
+    reads = None if expand is None else _self_reads(expand)
+    if reads is None or not reads <= {*_PLANNER_STATE, *_PLANNER_HELPERS}:
+        yield
+        return
+    memo = {}
+
+    def get_next_state(self, placements, shard_order):
+        key = (self, tuple(placements), shard_order,
+               *(frozenset(v) if isinstance(v, set) else v
+                 for v in (getattr(self, k) for k in _PLANNER_STATE)))
+        got = memo.get(key)
+        if got is None:
+            got = memo[key] = expand(self, placements, shard_order)
+        return got
+
+    Planner.get_next_state = get_next_state
+    try:
+        yield
+    finally:
+        Planner.get_next_state = expand
 
 
 def _sharded(tree, fake_mode, unit: frozenset):
@@ -151,7 +227,7 @@ def _train_args(cfg, specs, fake_mode, unit):
 
 
 def analyze_step(cfg, shape, mesh, n_micro: Optional[int] = None,
-                 donate: bool = True) -> dict:
+                 donate: bool = True, trip_count: bool = True) -> dict:
     """Run ``cfg``'s step of ``shape`` (a :class:`~repro_torch.configs.
     base.ShapeCfg`) once on ``DTensor`` inputs over ``mesh`` (a process
     group must span it) and return the counts: ``kind``, ``chips``,
@@ -160,7 +236,12 @@ def analyze_step(cfg, shape, mesh, n_micro: Optional[int] = None,
     ``flop_counter_global``.  ``n_micro`` fixes the microbatch size of a
     train step (default the config's, as the reference's).  Without
     ``donate`` the step updates copies of the donated inputs (cache;
-    parameters and moments), so no output aliases an input."""
+    parameters and moments), so no output aliases an input.  With
+    ``trip_count`` (the default) a loop of like iterations
+    (:func:`repro_torch.loops.scan`: the microbatches, the planner's row
+    blocks and bisection steps, the chunked attention's KV chunks) runs
+    its first iteration only, counted once per iteration, as the
+    reference counts a ``while`` body; without, every iteration runs."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.distributed.tensor.experimental import implicit_replication
     from torch.utils.flop_counter import FlopCounterMode
@@ -210,12 +291,13 @@ def analyze_step(cfg, shape, mesh, n_micro: Optional[int] = None,
         donated = (1,)
     arg_locals = _locals(args)
 
-    oa = OpAnalysis(fake_mode, max_plain_bytes=_MAX_PLAIN_BYTES)
-    oa.add_arguments(arg_locals)
     glob = FlopCounterMode(display=False)
+    oa = OpAnalysis(fake_mode, max_plain_bytes=_MAX_PLAIN_BYTES,
+                    trip_count=trip_count, global_counter=glob)
+    oa.add_arguments(arg_locals)
     t0 = time.perf_counter()
-    with route_as("cpu"), axis_rules(rules, mesh), \
-            implicit_replication(), oa, glob:
+    with _memoized_redistribute_planner(), route_as("cpu"), \
+            axis_rules(rules, mesh), implicit_replication(), oa, glob:
         # ``glob`` innermost sees each DTensor op whole; ``oa`` the local
         # ops that DTensor then issues
         if not donate:
@@ -242,6 +324,19 @@ def analyze_step(cfg, shape, mesh, n_micro: Optional[int] = None,
     return out
 
 
+def spls_config(cfg):
+    """``cfg`` with the dry run's SPLS configuration (the reference's
+    ``--spls``: the paper's thresholds, q / kv capacities 0.5 / 0.75), if
+    it has attention to plan."""
+    if not cfg.has_attn:
+        return cfg
+    from repro_torch.core.spls import SPLSConfig
+    return dataclasses.replace(cfg, spls=SPLSConfig(
+        enabled=True, k_ratio=0.12, s_threshold=0.6, f_threshold=6,
+        window=8, causal=cfg.causal,
+        q_capacity_ratio=0.5, kv_capacity_ratio=0.75))
+
+
 def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
              spls: bool = False, n_micro: Optional[int] = None,
              donate: bool = True) -> dict:
@@ -255,12 +350,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
         return {"arch": arch, "shape": shape_name, "mesh": mesh_name,
                 "spls": spls, "skipped": True,
                 "reason": "unsupported shape (see DESIGN.md)"}
-    if spls and cfg.has_attn:
-        from repro_torch.core.spls import SPLSConfig
-        cfg = dataclasses.replace(cfg, spls=SPLSConfig(
-            enabled=True, k_ratio=0.12, s_threshold=0.6, f_threshold=6,
-            window=8, causal=cfg.causal,
-            q_capacity_ratio=0.5, kv_capacity_ratio=0.75))
+    if spls:
+        cfg = spls_config(cfg)
 
     with fake_group(512 if multi_pod else 256):
         mesh = make_production_mesh(multi_pod=multi_pod, device_type="cpu")

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -48,9 +49,12 @@ def run_one(arch: str, shape: str, multi_pod: bool, spls: bool,
         cmd.append("--spls")
     mesh = "2x16x16" if multi_pod else "16x16"
     t0 = time.time()
+    # a cell computes on fake tensors: one intra-op thread, so that cells
+    # run side by side do not spin idle threads against each other
+    env = dict(os.environ, OMP_NUM_THREADS="1")
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True,
-                              timeout=timeout)
+                              timeout=timeout, env=env)
     except subprocess.TimeoutExpired:
         return {"arch": arch, "shape": shape, "mesh": mesh, "spls": spls,
                 "error": f"timeout {timeout}s", "wall_s": time.time() - t0}

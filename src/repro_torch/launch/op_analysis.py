@@ -38,7 +38,19 @@ Plain tensors that the step makes from no input (position ids, RoPE
 tables, masks) are made whole on every device, as replicated tensors are:
 their ops are counted at their full size -- but for ops on one or two
 plain tensors of fewer than 4096 elements each, which are ``DTensor``'s
-own index arithmetic and are not counted.
+own index arithmetic and are not counted.  ``max_plain_bytes`` bounds
+what a plain op may make (a rerun on ``meta`` sizes it); the integer ops
+that ``DTensor`` issues itself while it shards or plans a redistribution
+(``chunk``, ``cat``, ``arange`` on index tensors) make no sharded data
+and are counted without that rerun.
+
+With ``trip_count`` the analysis counts a loop of like iterations as the
+reference counts a ``while`` body, once times its trip count:
+:func:`repro_torch.loops.scan` runs iteration 0, has it counted ``n``
+times (:meth:`OpAnalysis.snapshot`, :meth:`OpAnalysis.count_again`) and
+stands the other iterations' outputs in (:meth:`OpAnalysis.stand_in`):
+live bytes hold them as buffers of their own, and no traffic is counted
+for making them.
 """
 
 from __future__ import annotations
@@ -73,6 +85,9 @@ _WAITS = ("wait_tensor", "_wrap_tensor_autograd")
 # DTensor's CPU fallback for a shard-to-shard all-to-all
 _CPU_ALLTOALL = "shard_dim_alltoall"
 _SMALL = 4096
+# frames that lie between an op and the code that issued it: torch's own
+# (dispatch, functional wrappers) and this module's
+_DISPATCH_MODULES = ("torch.", __name__)
 
 
 def _tensors(tree) -> list:
@@ -98,6 +113,32 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
+def _issued_by_dtensor() -> bool:
+    """True if the op being dispatched was issued by ``DTensor``'s own
+    code (its sharding, its redistribution planner), not by the step: the
+    nearest frame outside torch's dispatch is ``DTensor``'s."""
+    f = sys._getframe(1)
+    while f is not None:
+        mod = f.f_globals.get("__name__", "")
+        if mod.startswith("torch.distributed.tensor"):
+            return True
+        if not mod.startswith(_DISPATCH_MODULES):
+            return False
+        f = f.f_back
+    return False
+
+
+def _index_op(kwargs, ins) -> bool:
+    """An op on integer (or boolean) tensors that makes no float tensor
+    and that ``DTensor`` issued: index arithmetic, no sharded data."""
+    dtype = kwargs.get("dtype")
+    if dtype is not None and (dtype.is_floating_point or dtype.is_complex):
+        return False
+    if any(t.is_floating_point() or t.is_complex() for t in ins):
+        return False
+    return _issued_by_dtensor()
+
+
 def _in_cpu_alltoall() -> bool:
     f = sys._getframe(2)
     while f is not None:
@@ -114,17 +155,62 @@ class OpAnalysis(TorchDispatchMode):
     tensors of any other fake mode are shape propagation and are skipped.
     ``max_plain_bytes`` bounds a plain (not fake) tensor that an op may
     make: past it the op raises, naming itself, before a dry run of a
-    production shape allocates host memory that a device would hold."""
+    production shape allocates host memory that a device would hold.
+    ``trip_count`` counts :func:`repro_torch.loops.scan`'s loops by trip
+    count; ``global_counter`` (a ``FlopCounterMode`` of the same run) is
+    scaled alike."""
 
-    def __init__(self, fake_mode=None, max_plain_bytes=None):
+    def __init__(self, fake_mode=None, max_plain_bytes=None,
+                 trip_count: bool = False, global_counter=None):
         super().__init__()
         self.fake_mode = fake_mode
         self.max_plain_bytes = max_plain_bytes
+        self.trip_count = trip_count
+        self.global_counter = global_counter
         self.stats: Dict[str, float] = defaultdict(float)
         self.live_bytes = 0
         self.peak_bytes = 0
         self._known = weakref.WeakValueDictionary()
         self.read = set()        # storages an op has read
+        self._standing_in = False
+        self._dtensor_traffic = 0.0
+
+    # -- trip counts --------------------------------------------------------
+    def snapshot(self):
+        """The counts so far, for :meth:`count_again`."""
+        glob = self.global_counter
+        flops = ({m: dict(d) for m, d in glob.flop_counts.items()}
+                 if glob is not None else {})
+        return dict(self.stats), flops, self._dtensor_traffic
+
+    def count_again(self, mark, times: int) -> None:
+        """Count what was recorded since ``mark`` (:meth:`snapshot`)
+        ``times`` more times: a loop body's other iterations.  The traffic
+        of ``DTensor``'s own ops on plain tensors is not counted again: it
+        plans a layout once and caches the plan, so an unrolled loop runs
+        them in its first iteration only."""
+        stats, flops, dtensor_traffic = mark
+        for k, v in list(self.stats.items()):
+            self.stats[k] = v + times * (v - stats.get(k, 0.0))
+        self.stats["traffic_bytes"] -= times * (
+            self._dtensor_traffic - dtensor_traffic)
+        if self.global_counter is not None:
+            for m, d in self.global_counter.flop_counts.items():
+                before = flops.get(m, {})
+                for op, v in list(d.items()):
+                    d[op] = v + times * (v - before.get(op, 0))
+
+    def stand_in(self, tree):
+        """Empty tensors of ``tree``'s shapes, placements and dtypes (a
+        skipped iteration's outputs): live buffers, no traffic."""
+        from repro_torch.tree import tree_map
+
+        self._standing_in = True
+        try:
+            return tree_map(lambda t: torch.empty_like(t)
+                            if isinstance(t, torch.Tensor) else t, tree)
+        finally:
+            self._standing_in = False
 
     # -- memory -----------------------------------------------------------
     def add_arguments(self, tensors: Iterable[torch.Tensor]) -> None:
@@ -176,6 +262,11 @@ class OpAnalysis(TorchDispatchMode):
         ins = _tensors((args, kwargs))
         if self._foreign(ins):
             return func(*args, **kwargs)
+        if self._standing_in:
+            out = func(*args, **kwargs)
+            for t in _tensors(out):
+                self._track(t)
+            return out
         self.read.update(_storage_key(t) for t in ins)
         if self._small_plain(func, ins):
             return func(*args, **kwargs)
@@ -204,8 +295,10 @@ class OpAnalysis(TorchDispatchMode):
 
     def _check_plain(self, func, args, kwargs, ins) -> None:
         """Raise before an op on plain tensors makes one larger than
-        ``max_plain_bytes`` (its output shapes from a run on ``meta``)."""
-        if any(isinstance(t, FakeTensor) for t in ins):
+        ``max_plain_bytes`` (its output shapes from a run on ``meta``);
+        ``DTensor``'s index arithmetic is let through unchecked."""
+        if (any(isinstance(t, FakeTensor) for t in ins)
+                or _index_op(kwargs, ins)):
             return
         to_meta = lambda x: x.to("meta") if isinstance(x, torch.Tensor) else x
         margs, mkw = tree_map(to_meta, (args, kwargs))
@@ -246,8 +339,15 @@ class OpAnalysis(TorchDispatchMode):
             return                                  # a view
         for t in new:
             self._track(t)
-        self.stats["traffic_bytes"] += (sum(map(_nbytes, ins))
-                                        + sum(map(_nbytes, outs)))
+        traffic = sum(map(_nbytes, ins)) + sum(map(_nbytes, outs))
+        self.stats["traffic_bytes"] += traffic
+        if (self.trip_count and not any(isinstance(t, FakeTensor)
+                                        for t in (*ins, *outs))
+                and _issued_by_dtensor()):
+            # DTensor's own work on plain tensors (its sharding
+            # propagation, cached once a layout is planned): not a loop
+            # body's, so not counted again by trip count
+            self._dtensor_traffic += traffic
         if func._overloadpacket in flop_registry:
             self.stats["dot_flops"] += flop_registry[func._overloadpacket](
                 *args, **kwargs, out_val=out)

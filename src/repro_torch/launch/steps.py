@@ -27,6 +27,7 @@ from typing import Callable, Dict, Optional
 import torch
 
 from repro_torch.device import route_as
+from repro_torch.loops import scan
 from repro_torch.models import decode_step, loss_fn, prefill
 from repro_torch.optim import AdamWConfig, adamw_update
 from repro_torch.sharding.logical import is_dtensor
@@ -98,17 +99,19 @@ def make_loss_grad(cfg, n_micro: int = 1) -> Callable:
                                  f"n_micro={n_micro}")
             acc = tree_map(lambda p: torch.zeros_like(
                 p, dtype=torch.float32), params)
-            loss_acc = torch.zeros((), dtype=torch.float32,
-                                   device=batch["inputs"].device)
-            for i in range(n_micro):
+
+            def micro(loss_acc, i):
                 mb = {k: _microbatch(v, n_micro, i)
                       for k, v in batch.items()}
                 loss, _, grads = _value_and_grad(cfg, params, mb)
                 with torch.no_grad():
                     for a, g in zip(leaves(acc), leaves(grads)):
                         a.add_(g.float() / n_micro)
-                    loss_acc = loss_acc + loss / n_micro
-                del grads
+                    return loss_acc + loss / n_micro, None
+
+            loss_acc, _ = scan(micro, torch.zeros(
+                (), dtype=torch.float32, device=batch["inputs"].device),
+                n_micro)
             return acc, {"loss": loss_acc}
 
     return loss_grad

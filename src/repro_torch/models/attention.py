@@ -51,8 +51,8 @@ import torch.nn.functional as F
 from repro_torch.core.spls import SparsityPlan
 from repro_torch.core.spls_chunked import ChunkedPlan
 from repro_torch.sharding.logical import (_current_mesh, constrain,
-                                         from_local, is_dtensor,
-                                         mesh_axis_sizes)
+                                         from_local, head_placements,
+                                         is_dtensor, mesh_axis_sizes)
 
 from .attn_backend import get_backend, resolve_backend
 from .common import apply_rope, dense_init, rms_norm, rope_freqs
@@ -92,6 +92,26 @@ def head_shard_mode(cfg) -> str:
     if cfg.n_heads % m == 0:
         return "flat"
     return "padded"
+
+
+def flat_kv_share(n_heads: int, G: int) -> int:
+    """On ``DTensor``s in the flat layout: how many of a device's heads
+    share one KV head (h2o-danube3's 2 of G 4 on 16 devices), 1 where a
+    device's heads span KV groups.  The KV weights are repeated ``G /
+    share`` times before the product and its result widened ``share``
+    times after (:func:`widen_heads`), so each device projects its KV
+    head once."""
+    per_dev = n_heads // _model_axis()
+    return per_dev if G % per_dev == 0 else 1
+
+
+def widen_heads(t: torch.Tensor, e: int) -> torch.Tensor:
+    """(B, C, L, Dh) -> (B, C * e, L, Dh), each head repeated ``e`` times
+    in place (a shard of the C heads stays a plain shard)."""
+    if e == 1:
+        return t
+    B, C, L, Dh = t.shape
+    return t[:, :, None].expand(B, C, e, L, Dh).reshape(B, C * e, L, Dh)
 
 
 def _pad_heads_to(cfg) -> int:
@@ -172,17 +192,13 @@ def project_qkv(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
             # share one copy of the group's k / v, widened to them after
             # the product: each device projects its KV head once
             G = cfg.n_heads // cfg.n_kv_heads
-            per_dev = cfg.n_heads // _model_axis()
-            e = per_dev if G % per_dev == 0 else 1
+            e = flat_kv_share(cfg.n_heads, G)
             ws = (p["wq"].reshape(cfg.d_model, cfg.n_heads, Dh),
                   *(p[w].repeat_interleave(G // e, 1) for w in ("wk", "wv")))
         wq, wk, wv = (constrain(w, (None, "heads", None)) for w in ws)
         q = constrain(torch.einsum("bld,dhe->bhle", x, wq), heads)[:, :, None]
         k, v = _kv_rows(cfg, dict(p, wk=wk, wv=wv), x, positions, heads)
-        if e > 1:
-            B, C, L, _ = k.shape
-            k, v = (t[:, :, None].expand(B, C, e, L, Dh).reshape(
-                B, C * e, L, Dh) for t in (k, v))
+        k, v = widen_heads(k, e), widen_heads(v, e)
     else:
         m = _model_axis()
         if is_dtensor(x) and cfg.n_kv_heads % m and (
@@ -278,13 +294,8 @@ def _per_head(fn, q, k, v, plan):
     fields are laid out as q -- and ``o`` is q's layout.  (Op by op,
     ``DTensor`` would plan a redistribution for every product of the
     chunk loop.)"""
-    from torch.distributed.tensor import Replicate
-
     mesh = q.device_mesh
-    head = tuple(p if p.is_shard() and p.dim in (0, 1, 2) else Replicate()
-                 for p in q.placements)
-    kv = tuple(p if p.is_shard() and p.dim < 2 else Replicate()
-               for p in head)
+    head, kv = head_placements(q)
 
     def local(t, pl):
         return t.redistribute(mesh, pl).to_local()

@@ -41,7 +41,7 @@ except ImportError:             # a build without torch.distributed
 __all__ = ["PartitionSpec", "NamedSharding", "axis_rules", "current_rules",
            "constrain", "logical_to_mesh", "spec_for", "named_sharding",
            "placements", "mesh_axis_sizes", "is_dtensor", "arange_like",
-           "map_local", "from_local"]
+           "map_local", "head_placements", "from_local"]
 
 MeshAxes = Union[str, Tuple[str, ...], None]
 
@@ -92,6 +92,20 @@ def map_local(fn, x: torch.Tensor) -> torch.Tensor:
     if pl != tuple(x.placements):
         x = x.redistribute(x.device_mesh, pl)
     return from_local(fn(x.to_local()), x.device_mesh, pl, x.shape)
+
+
+def head_placements(q) -> Tuple[tuple, tuple]:
+    """``(head, kv)``: the placements of a ``DTensor`` ``q (B, KV, G, ...)``
+    with only its batch and head dims (0-2) kept on their mesh axes, and
+    of a ``k (B, KV, ...)`` laid out alike (dims 0-1).  Work local to a
+    (batch, head) row runs on these shards with no collective."""
+    from torch.distributed.tensor import Replicate
+
+    head = tuple(p if p.is_shard() and p.dim in (0, 1, 2) else Replicate()
+                 for p in q.placements)
+    kv = tuple(p if p.is_shard() and p.dim < 2 else Replicate()
+               for p in head)
+    return head, kv
 
 
 def from_local(local: torch.Tensor, mesh, pl: tuple, shape):

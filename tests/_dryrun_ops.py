@@ -15,8 +15,10 @@ count little or none of their projections.  The ``ref`` side here walks
 every fusion as a call (:func:`walk_fusions`); its ``dot_flops`` is
 :func:`fused_dot_flops`, beside the reference's ``hlo_flops_per_device``.
 
-  PYTHONPATH=src python tests/_dryrun_ops.py port ARCH SHAPE [N]
-  JAX_PLATFORMS=cpu PYTHONPATH=src python tests/_dryrun_ops.py ref ARCH SHAPE [N]
+  PYTHONPATH=src python tests/_dryrun_ops.py port ARCH SHAPE [N] \
+      [--multi-pod] [--spls]
+  JAX_PLATFORMS=cpu PYTHONPATH=src python tests/_dryrun_ops.py ref ARCH SHAPE \
+      [N] [--multi-pod] [--spls]
 
 prints the totals as JSON, then the ``N`` (default 30) largest entries as
 ``value  kind  site  shapes``.
@@ -43,7 +45,8 @@ def _port_site() -> str:
     return "?"
 
 
-def port(arch: str, shape: str) -> tuple:
+def port(arch: str, shape: str, multi_pod: bool = False,
+         spls: bool = False) -> tuple:
     from repro_torch.launch import op_analysis
     from repro_torch.launch.dryrun import run_cell
 
@@ -61,7 +64,7 @@ def port(arch: str, shape: str) -> tuple:
 
     op_analysis.OpAnalysis._record = _record
     try:
-        res = run_cell(arch, shape)
+        res = run_cell(arch, shape, multi_pod, spls)
     finally:
         op_analysis.OpAnalysis._record = record
     return ({"dot_flops": res["hlo_flops_per_device"],
@@ -84,7 +87,8 @@ def fused_dot_flops(hlo: str) -> float:
     return parse_hlo_stats(walk_fusions(hlo))["dot_flops"]
 
 
-def ref(arch: str, shape: str) -> tuple:
+def ref(arch: str, shape: str, multi_pod: bool = False,
+        spls: bool = False) -> tuple:
     os.environ.setdefault("XLA_FLAGS",
                           "--xla_force_host_platform_device_count=512")
     import repro.launch.dryrun as dry
@@ -94,7 +98,7 @@ def ref(arch: str, shape: str) -> tuple:
     parse = dry.parse_hlo_stats
     dry.parse_hlo_stats = lambda t: (texts.append(t), parse(t))[1]
     try:
-        res = dry.run_cell(arch, shape)
+        res = dry.run_cell(arch, shape, multi_pod=multi_pod, spls=spls)
     finally:
         dry.parse_hlo_stats = parse
     prog = H._HLO(walk_fusions(texts[0]))
@@ -148,10 +152,15 @@ def ref(arch: str, shape: str) -> tuple:
 
 def main(argv=None) -> None:
     args = argv or sys.argv[1:]
+    flags = {a for a in args if a.startswith("--")}
+    args = [a for a in args if not a.startswith("--")]
     side, arch, shape = args[:3]
     n = int(args[3]) if len(args) > 3 else 30
-    totals, tally = (port if side == "port" else ref)(arch, shape)
-    print(json.dumps(dict(totals, side=side, arch=arch, shape=shape)))
+    multi_pod, spls = "--multi-pod" in flags, "--spls" in flags
+    totals, tally = (port if side == "port" else ref)(arch, shape, multi_pod,
+                                                      spls)
+    print(json.dumps(dict(totals, side=side, arch=arch, shape=shape,
+                          multi_pod=multi_pod, spls=spls)))
     for key, v in sorted(tally.items(), key=lambda kv: -kv[1])[:n]:
         print(f"{v:.4e}  " + "  ".join(key))
 
