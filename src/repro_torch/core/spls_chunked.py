@@ -20,6 +20,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.loops import scan
+from repro_torch.observability.trace import phase
 from repro_torch.sharding.logical import (arange_like, from_local,
                                          head_placements, is_dtensor)
 
@@ -83,7 +84,8 @@ def _block_pam_mask(qh_blk: torch.Tensor, kh: torch.Tensor, *, k, row0,
 
     The PAM is computed in float32, rounded to bfloat16 (the prediction is
     already 8-bit math; the reference stores the block in bf16) and widened
-    again, so both packages threshold the same values.
+    again, so both packages threshold the same values.  The bisection is
+    the phase ``spls.topk`` of a serving engine's trace.
     """
     Dh = qh_blk.shape[-1]
     C = qh_blk.shape[-2]
@@ -98,7 +100,8 @@ def _block_pam_mask(qh_blk: torch.Tensor, kh: torch.Tensor, *, k, row0,
     pam = pam.masked_fill(~cmask, CAUSAL_FILL)
     pam32 = pam.to(torch.float32)
     valid_rows = arange_like(qh_blk, C) < n_valid_rows
-    mask = bisect_topk_mask(pam32, k)
+    with phase("spls.topk"):
+        mask = bisect_topk_mask(pam32, k)
     mask = mask & cmask & valid_rows[:, None]
     return mask, pam32
 

@@ -8,7 +8,8 @@ One :class:`Telemetry` object per engine bundles the pieces:
   what the ad-hoc dict they replaced cost, so the telemetry knob does
   not gate them.
 * ``metrics`` / ``trace`` / ``sparsity`` -- the knob-gated instruments:
-  lifecycle histograms, Chrome trace spans, SPLS gauges.  With
+  lifecycle histograms, Chrome trace spans and the host's phase
+  intervals (:mod:`~repro_torch.observability.trace`), SPLS gauges.  With
   ``enabled=False`` these are no-op sinks and record **nothing** (the
   test suite pins an empty snapshot and an empty trace after a full
   serving run).
@@ -17,9 +18,11 @@ One :class:`Telemetry` object per engine bundles the pieces:
   module aggregates into TTFT/TPOT percentiles and
   preemption/requeue rates.
 
-Every timestamp comes from the injected monotonic clock via
-``Telemetry.now()`` -- host-side only, after device readback; nothing
-here is ever traced by jit.
+Every span and record timestamp comes from the injected monotonic clock
+via ``Telemetry.now()`` -- host-side only, after device readback; nothing
+here is ever traced by jit.  The recorder adds ``time.time_ns()`` stamps
+of its own (each event's ``wall_ns``, the phase intervals), which never
+read the injected clock.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ from typing import Dict, List, Optional
 
 from .metrics import MetricsRegistry
 from .sparsity import SparsityInstruments
-from .trace import TraceRecorder
+from .trace import ENGINE_TRACK, TraceRecorder
 
 __all__ = ["RequestRecord", "Telemetry"]
 
@@ -76,6 +79,7 @@ class Telemetry:
         self.sparsity = SparsityInstruments(self.metrics)
         self.requests: Dict[int, RequestRecord] = {}
         self.started_ts = clock()
+        self._span_tracks: List[int] = []   # tracks of open engine spans
 
     def now(self) -> float:
         return self.core.now()
@@ -111,6 +115,8 @@ class Telemetry:
         stack = self.trace.open_spans(tid)
         while stack and stack[-1] != "request":
             self.trace.end(stack.pop(), ts, tid)
+        self._span_tracks = [t for t in self._span_tracks if t != tid]
+        self._follow_span()
 
     def request_preempted(self, rid: int) -> None:
         """Preemption-by-eviction: the request re-queues front-of-line,
@@ -198,10 +204,26 @@ class Telemetry:
             return
         tid = 0 if rid is None else self.trace.track_for(rid)
         self.trace.begin(name, self.now(), tid, args=args)
+        self._span_tracks.append(tid)
+        self._follow_span()
 
     def span_end(self, name: str, rid: Optional[int] = None,
-                 args: Optional[dict] = None) -> None:
+                 args: Optional[dict] = None, device=None) -> None:
+        """Close an engine phase; on a CUDA ``device`` the span also gets
+        the time the card finished its work (see :meth:`TraceRecorder.
+        end`)."""
         if not self.enabled:
             return
         tid = 0 if rid is None else self.trace.track_for(rid)
-        self.trace.end(name, self.now(), tid, args=args)
+        self.trace.end(name, self.now(), tid, args=args, device=device)
+        tracks = self._span_tracks
+        if tid in tracks:
+            del tracks[len(tracks) - 1 - tracks[::-1].index(tid)]
+        self._follow_span()
+
+    def _follow_span(self) -> None:
+        """Phases record on the track of the latest engine span still
+        open (the engine track when none is), whichever other track a
+        preemption or abort unwinds meanwhile."""
+        self.trace.track = (self._span_tracks[-1] if self._span_tracks
+                            else ENGINE_TRACK)

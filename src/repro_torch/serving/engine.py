@@ -43,7 +43,7 @@ from repro_torch.core.topk import topk_count
 from repro_torch.device import resolve_device
 from repro_torch.models import decode_step, init_cache, prefill
 from repro_torch.models.attn_backend import AUTO, site_backend
-from repro_torch.observability import Telemetry, tree_bytes
+from repro_torch.observability import Telemetry, host_wait, phase, tree_bytes
 from repro_torch.sparse_compute import (CapacityController, chunk_flops,
                                         is_packed, resolve_compute_backend)
 
@@ -231,8 +231,9 @@ class ServingEngine(_SamplerMixin):
                 continue
             req, tokens = self.queue.popleft()
             self.telemetry.request_admitted(req.rid)
-            toks = torch.tensor([tokens], dtype=torch.int32,
-                                device=self.device)
+            with host_wait("h2d:tokens"):
+                toks = torch.tensor([tokens], dtype=torch.int32,
+                                    device=self.device)
             self.telemetry.span_begin("full_prefill", rid=req.rid)
             logits, cache1 = prefill(self._cfg_fwd, self.params, toks,
                                      max_len=self.scfg.max_len,
@@ -243,9 +244,12 @@ class ServingEngine(_SamplerMixin):
             for full, one in zip(self.cache, cache1):
                 for f_full, f_one in zip(full, one):
                     f_full[:, s:s + 1].copy_(f_one)
-            nxt = int(self._pick(logits[0, -1]))
+            nxt = self._pick(logits[0, -1])
+            with host_wait("token_pick"):
+                nxt = int(nxt)
             req.output.append(nxt)
-            self.telemetry.span_end("full_prefill", rid=req.rid)
+            self.telemetry.span_end("full_prefill", rid=req.rid,
+                                    device=self.device)
             self.telemetry.first_token(req.rid)
             self.slots[s] = req
             self.pos[s] = len(tokens)
@@ -265,6 +269,10 @@ class ServingEngine(_SamplerMixin):
 
     def tick(self) -> int:
         """One engine iteration; returns the number of slots decoded."""
+        with self.telemetry.trace.activate():
+            return self._tick()
+
+    def _tick(self) -> int:
         self._admit()
         self._retire()  # a prefill-emitted token may already hit eos/budget
         active = [s for s, r in enumerate(self.slots) if r is not None]
@@ -272,14 +280,18 @@ class ServingEngine(_SamplerMixin):
             return 0
         self.telemetry.span_begin("decode_tick",
                                   args={"n_active": len(active)})
-        logits, _ = decode_step(
-            self._cfg_dec, self.params, self.cache,
-            torch.as_tensor(self.tokens).to(self.device),
-            torch.as_tensor(self.pos).to(self.device))
-        nxt = self._pick(logits[:, 0]).tolist()
+        with host_wait("h2d:tokens"):
+            tokens = torch.as_tensor(self.tokens).to(self.device)
+        with host_wait("h2d:pos"):
+            pos = torch.as_tensor(self.pos).to(self.device)
+        logits, _ = decode_step(self._cfg_dec, self.params, self.cache,
+                                tokens, pos)
+        nxt = self._pick(logits[:, 0])
+        with host_wait("token_pick"):
+            nxt = nxt.tolist()
         for s in active:
             self.slots[s].output.append(int(nxt[s]))
-        self.telemetry.span_end("decode_tick")
+        self.telemetry.span_end("decode_tick", device=self.device)
         self.telemetry.tokens_decoded([self.slots[s].rid for s in active])
         for s in active:
             self.pos[s] += 1
@@ -441,8 +453,12 @@ class PagedServingEngine(_SamplerMixin):
         row[:len(st.pages)] = st.pages
         return row
 
-    def _tensor(self, a) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(a)).to(self.device)
+    def _tensor(self, a, name: str) -> torch.Tensor:
+        """``a`` on the engine's device.  On the card the copy waits for
+        the stream to drain (pageable memory, not ``non_blocking``): a
+        ``sync`` phase labelled ``h2d:<name>``."""
+        with host_wait("h2d:" + name):
+            return torch.as_tensor(np.asarray(a)).to(self.device)
 
     def _dest_slots(self, st: SeqState, n: int) -> np.ndarray:
         """(n,) flat page-slot destinations for logical slots [0, n)."""
@@ -459,12 +475,15 @@ class PagedServingEngine(_SamplerMixin):
         tel = self.telemetry
         tel.span_begin("full_prefill", rid=st.req.rid,
                        args={"prompt_len": st.prompt_len})
-        toks = self._tensor(np.asarray(st.tokens, np.int32))[None, :]
+        toks = self._tensor(np.asarray(st.tokens, np.int32),
+                            "tokens")[None, :]
         logits, dense_cache = prefill(self._cfg_fwd, self.params, toks,
                                       plan_mode=self._plan_mode)
         if self._prune:
             votes = spls_token_votes(self.cfg, self.params, toks[0])
-            keep = keep_from_votes(votes.cpu().numpy(), self.cfg.n_heads,
+            with host_wait("votes"):
+                votes = votes.cpu().numpy()
+            keep = keep_from_votes(votes, self.cfg.n_heads,
                                    self.scfg.spls_prune_vote)
         else:
             keep = np.ones((st.prompt_len,), bool)
@@ -475,8 +494,9 @@ class PagedServingEngine(_SamplerMixin):
             # telemetry); prefill recomputes later
             return
         scatter_prefill(self.cache, self.pos_pages, dense_cache,
-                        self._tensor(keep_idx.astype(np.int32)),
-                        self._tensor(self._dest_slots(st, n_kept)))
+                        self._tensor(keep_idx.astype(np.int32), "keep_idx"),
+                        self._tensor(self._dest_slots(st, n_kept),
+                                     "dest_slots"))
         st.kv_len = n_kept
         st.cur_pos = st.prompt_len
         st.prefilled = st.prompt_len
@@ -487,7 +507,8 @@ class PagedServingEngine(_SamplerMixin):
         if self._prune:
             self.sched.note_prune(st.prompt_len, n_kept)
             tel.sparsity.note_prune(st.prompt_len, n_kept)
-        tel.span_end("full_prefill", rid=st.req.rid, args={"kept": n_kept})
+        tel.span_end("full_prefill", rid=st.req.rid, args={"kept": n_kept},
+                     device=self.device)
         self._emit_first(st, logits[0, -1])
 
     def _chunk_prefill(self, st: SeqState) -> None:
@@ -502,8 +523,8 @@ class PagedServingEngine(_SamplerMixin):
                        args={"start": start, "valid": valid})
         chunk = np.zeros((cs,), np.int32)
         chunk[:valid] = st.tokens[start:start + valid]
-        table = self._tensor(self._table_row(st))
-        toks = self._tensor(chunk)[None, :]
+        table = self._tensor(self._table_row(st), "table")
+        toks = self._tensor(chunk, "tokens")[None, :]
         if self.cfg.spls.enabled:
             logits = self._spls_chunk(st, start, valid, table, toks)
         else:
@@ -515,7 +536,7 @@ class PagedServingEngine(_SamplerMixin):
         st.kv_len += valid
         st.cur_pos += valid
         self.sched.stats["prefill_chunks"] += 1
-        tel.span_end("prefill_chunk", rid=st.req.rid)
+        tel.span_end("prefill_chunk", rid=st.req.rid, device=self.device)
         if st.phase == "decode":
             if self._prune:
                 self._finish_chunk_prune(st)
@@ -545,48 +566,55 @@ class PagedServingEngine(_SamplerMixin):
             if st.live is None:
                 st.live = np.ones((self.pages_per_seq * self.page_size,),
                                   bool)
-            live = self._tensor(st.live)
+            live = self._tensor(st.live, "live")
         logits, kv_any, counts = paged_prefill_chunk_spls(
             self.cfg, self.params, self.cache, self.pred_cache,
             self.pos_pages, table, start, toks, valid, k, q_capacity=cq,
             ffn_capacity=cf, kv_capacity=ckv, compute_backend=self._compute,
             live=live, last_keep=last_keep, kv_vote_need=self._vote_need)
-        if self._prune:
-            # cross-chunk vote accumulator: a head's "some row kept this
-            # column" bit only ever turns on, so OR is exact
-            votes = kv_any.reshape(self.cfg.n_heads, -1).cpu().numpy()
-            st.head_votes = (votes if st.head_votes is None
-                             else st.head_votes | votes)
-        if self._horizon is not None:
-            # finalize columns whose probation expired below the vote bar,
-            # and mirror the device's kv_capacity pack of this chunk's own
-            # columns (core.planner owns both)
-            st.live = horizon_update_live(
-                st.live, st.head_votes.sum(axis=0), start=start,
-                valid=valid, chunk=cs, horizon=self._horizon,
-                last_keep=last_keep, vote_need=self._vote_need,
-                kv_capacity=ckv, metrics=tel.metrics)
-        if packed:
-            # the host readback of the critical counts syncs on the chunk
-            # step; only packed compute reads them (dense has no capacity)
-            n_q, n_f, n_kv = (int(v) for v in counts.amax(dim=0).tolist())
-            self._cap_q.observe(n_q)
-            if n_q > cq:
-                self._cap_q.note_overflow()
-            tel.sparsity.note_capacity("q", cq, n_q, n_q > cq)
-            if self.cfg.spls.ffn_sparsity:
-                self._cap_f.observe(n_f)
-                if n_f > cf:
-                    self._cap_f.note_overflow()
-                tel.sparsity.note_capacity("ffn", cf, n_f, n_f > cf)
-            if ckv is not None:
-                self._cap_kv.observe(n_kv)
-                if n_kv > ckv:
-                    self._cap_kv.note_overflow()
-                tel.sparsity.note_capacity("kv", ckv, n_kv, n_kv > ckv)
-        self.sched.note_flops(chunk_flops(self.cfg, cs, start + valid,
-                                          q_rows=cq, ffn_rows=cf,
-                                          kv_rows=ckv))
+        with phase("chunk.host"):
+            if self._prune:
+                # cross-chunk vote accumulator: a head's "some row kept
+                # this column" bit only ever turns on, so OR is exact
+                votes = kv_any.reshape(self.cfg.n_heads, -1)
+                with host_wait("votes"):
+                    votes = votes.cpu().numpy()
+                st.head_votes = (votes if st.head_votes is None
+                                 else st.head_votes | votes)
+            if self._horizon is not None:
+                # finalize columns whose probation expired below the vote
+                # bar, and mirror the device's kv_capacity pack of this
+                # chunk's own columns (core.planner owns both)
+                st.live = horizon_update_live(
+                    st.live, st.head_votes.sum(axis=0), start=start,
+                    valid=valid, chunk=cs, horizon=self._horizon,
+                    last_keep=last_keep, vote_need=self._vote_need,
+                    kv_capacity=ckv, metrics=tel.metrics)
+            if packed:
+                # the host readback of the critical counts syncs on the
+                # chunk step; only packed compute reads them (dense has no
+                # capacity)
+                counts = counts.amax(dim=0)
+                with host_wait("capacity_counts"):
+                    n_q, n_f, n_kv = (int(v) for v in counts.tolist())
+                self._cap_q.observe(n_q)
+                if n_q > cq:
+                    self._cap_q.note_overflow()
+                tel.sparsity.note_capacity("q", cq, n_q, n_q > cq)
+                if self.cfg.spls.ffn_sparsity:
+                    self._cap_f.observe(n_f)
+                    if n_f > cf:
+                        self._cap_f.note_overflow()
+                    tel.sparsity.note_capacity("ffn", cf, n_f, n_f > cf)
+                if ckv is not None:
+                    self._cap_kv.observe(n_kv)
+                    if n_kv > ckv:
+                        self._cap_kv.note_overflow()
+                    tel.sparsity.note_capacity("kv", ckv, n_kv,
+                                               n_kv > ckv)
+            self.sched.note_flops(chunk_flops(self.cfg, cs, start + valid,
+                                              q_rows=cq, ffn_rows=cf,
+                                              kv_rows=ckv))
         return logits
 
     def _finish_chunk_prune(self, st: SeqState) -> None:
@@ -610,8 +638,8 @@ class PagedServingEngine(_SamplerMixin):
         keep_slots = np.zeros((S,), bool)
         keep_slots[:Lp] = keep
         compact_slots(self.cache, self.pos_pages,
-                      self._tensor(self._table_row(st)),
-                      self._tensor(keep_slots))
+                      self._tensor(self._table_row(st), "table"),
+                      self._tensor(keep_slots, "keep_slots"))
         needed = self.pool.pages_for(n_kept)
         if needed < len(st.pages):
             self.pool.free(st.pages[needed:])
@@ -624,13 +652,19 @@ class PagedServingEngine(_SamplerMixin):
                      args={"kept": n_kept, "prompt_len": Lp})
 
     def _emit_first(self, st: SeqState, logits_row: torch.Tensor) -> None:
-        st.req.output.append(int(self._pick(logits_row)))
+        tok = self._pick(logits_row)
+        with host_wait("token_pick"):
+            st.req.output.append(int(tok))
         st.budget -= 1
         self.telemetry.first_token(st.req.rid)
 
     # ------------------------------------------------------------------
     def tick(self) -> int:
         """One engine iteration; returns the number of slots decoded."""
+        with self.telemetry.trace.activate():
+            return self._tick()
+
+    def _tick(self) -> int:
         self.sched.admit()
         for st in self.sched.plan_prefills():
             if self.sched.slots[st.slot] is not st:
@@ -653,30 +687,36 @@ class PagedServingEngine(_SamplerMixin):
         if active:
             self.telemetry.span_begin("decode_tick",
                                       args={"n_active": len(active)})
-            n_slots = self.scfg.n_slots
-            tables = np.full((n_slots, self.pages_per_seq), NULL_PAGE,
-                             np.int32)
-            kv_len = np.zeros((n_slots,), np.int32)
-            cur_pos = np.zeros((n_slots,), np.int32)
-            tokens = np.zeros((n_slots, 1), np.int32)
-            for st in active:
-                tables[st.slot] = self._table_row(st)
-                kv_len[st.slot] = st.kv_len
-                cur_pos[st.slot] = st.cur_pos
-                tokens[st.slot, 0] = st.req.output[-1]
-            logits = paged_decode_step(
-                self.cfg, self.params, self.cache, self.pos_pages,
-                self._tensor(tables), self._tensor(kv_len),
-                self._tensor(cur_pos), self._tensor(tokens),
-                backend=self._attn_backend)
-            nxt = self._pick(logits[:, 0]).tolist()
+            with phase("decode.prepare"):
+                n_slots = self.scfg.n_slots
+                tables = np.full((n_slots, self.pages_per_seq), NULL_PAGE,
+                                 np.int32)
+                kv_len = np.zeros((n_slots,), np.int32)
+                cur_pos = np.zeros((n_slots,), np.int32)
+                tokens = np.zeros((n_slots, 1), np.int32)
+                for st in active:
+                    tables[st.slot] = self._table_row(st)
+                    kv_len[st.slot] = st.kv_len
+                    cur_pos[st.slot] = st.cur_pos
+                    tokens[st.slot, 0] = st.req.output[-1]
+                args = (self._tensor(tables, "tables"),
+                        self._tensor(kv_len, "kv_len"),
+                        self._tensor(cur_pos, "cur_pos"),
+                        self._tensor(tokens, "tokens"))
+            with phase("decode.forward"):
+                logits = paged_decode_step(
+                    self.cfg, self.params, self.cache, self.pos_pages,
+                    *args, backend=self._attn_backend)
+                nxt = self._pick(logits[:, 0])
+                with host_wait("token_pick"):
+                    nxt = nxt.tolist()
             for st in active:
                 st.req.output.append(int(nxt[st.slot]))
                 st.kv_len += 1
                 st.cur_pos += 1
                 st.budget -= 1
             n_decoded = len(active)
-            self.telemetry.span_end("decode_tick")
+            self.telemetry.span_end("decode_tick", device=self.device)
             self.telemetry.tokens_decoded([st.req.rid for st in active])
 
         self._retire_finished()

@@ -48,6 +48,7 @@ from repro_torch.models.common import dtype_of, rms_norm, softcap
 from repro_torch.models.model import embed_inputs, head_logits, \
     period_params
 from repro_torch.models.moe import ffn_forward
+from repro_torch.observability.trace import phase
 from repro_torch.sparse_compute import is_packed, packed_mlp, \
     packed_project_q
 
@@ -275,6 +276,11 @@ def paged_prefill_chunk_spls(cfg, params, cache, pred_cache,
     decision, as a page slot is shared by every layer.  Without them every
     chunk column is projected until the end-of-prefill vote.
 
+    Each layer's steps are the phases ``spls.predict`` (the input norm and
+    step (1)), ``spls.plan`` (step (2), the K/V keep, the counts),
+    ``chunk.attend`` and ``chunk.ffn`` (step (3)) of the engine's trace
+    (:mod:`repro_torch.observability.trace`).
+
     Updates ``cache``, ``pred_cache`` and ``pos_pages`` in place.  Returns
     ``(logits (1, 1, V) of the chunk's last valid row, kv_any (1, KV, G,
     S) layer 0's per-head column-keep bits, counts (n_periods, 3) int32)``
@@ -332,104 +338,109 @@ def paged_prefill_chunk_spls(cfg, params, cache, pred_cache,
                                    cache, pred_cache):
             k_pages, v_pages = kc.k_pages[pi], kc.v_pages[pi]
             codes_pg, scale_pg = pk.codes[pi], pk.scale[pi]
-            xn = rms_norm(x, bp["ln1"], cfg.norm_eps)
-            # prediction: extend the predictor code pages, emit the plan.
-            # The prediction and vote stay horizon-independent: finalized
-            # columns keep their top-k candidacy and are only denied
-            # materialization and attention below
-            qh, k_codes, k_scale = ctx.encode_pred_qk(bp["attn"], xn)
-            _write_slots(codes_pg, k_codes, flat)
-            scale_pg.view(-1)[flat] = k_scale
-            kh_all = ctx.decode_pred_k(codes_pg[:, tl].reshape(KV, S, Dh),
-                                       scale_pg[tl].reshape(S),
-                                       dtype=dtype)[None]
-            pb = ctx.plan_block(qh, kh_all, k=topk_k, row0=start,
-                                n_valid_rows=valid, n_cols=n_cols)
-            if kv_any is None:
-                kv_any = pb.kv_any
-            lead_local = pb.q_leader - start
-            crit_any = pb.q_critical.any(dim=2).any(dim=1)      # (1, CS)
-            n_ffn = (pb.ffn_critical[0] & (ridx < valid)).sum()
-            if Ckv is not None and kv_written is None:
-                # which of this chunk's own columns get a K/V projection
-                ok = own_column_keep(pb.kv_any, start=start, chunk=CS,
-                                     valid=valid, last_keep=last_keep,
-                                     vote_need=kv_vote_need)
-                kv_written = pack_within_capacity(
-                    ok, Ckv, anchor=start + ridx == last_keep)
-                live_all = live.clone()
-                end = min(start + CS, S)
-                live_all[start:end] = kv_written[:end - start]
-                n_kv = ok.sum()
-            cnt = torch.maximum(cnt, torch.stack(
-                [crit_any.sum(), n_ffn,
-                 n_kv if n_kv is not None else torch.zeros_like(n_ffn)]))
-            # formal K/V at original positions: every chunk row, except
-            # under vote_horizon == 1, where only the kept columns
-            if not packed:
-                q, k_new, v_new = project_qkv(cfg, bp["attn"], xn, positions)
-                kv_flat = flat
-            elif Ckv is not None:
-                # pack order over the anchor-reserved written set: at most
-                # Ckv True rows, so every written column lands in the perm
-                # (filler slots scatter to the null page)
-                kv_perm, _ = pack_by_mask(kv_written, Ckv)
-                k_new, v_new = project_kv(
-                    cfg, bp["attn"], xn, positions, perm=kv_perm,
-                    compute_backend=compute_backend)
-                kp = kv_perm.long()
-                kv_flat = torch.where(kv_written[kp], flat[kp], 0)
-            else:
-                k_new, v_new = project_kv(cfg, bp["attn"], xn, positions)
-                kv_flat = flat
-            _write_slots(k_pages, k_new[0], kv_flat)
-            _write_slots(v_pages, v_new[0], kv_flat)
-            kg = k_pages[:, tl].reshape(1, KV, 1, S, Dh)
-            vg = v_pages[:, tl].reshape(1, KV, 1, S, Dh)
-            mask = pb.mask
-            if blk.window is not None:
-                mask = mask & (age < blk.window)
-            if live_all is not None:
-                # finalized earlier, or dropped by this chunk's K/V pack:
-                # never projected, so never attended
-                mask = mask & live_all
-            elif live is not None:
-                # a finite horizon without the K/V pack: earlier-finalized
-                # columns are pruned, this chunk's own always materialize
-                mask = mask & live
-            # the two modes differ only in which q / mask rows the shared
-            # score-softmax-AV block sees
-            if packed:
-                # only the union rows' scores (every head's leaders are in
-                # the union); every row then reads its leader's packed
-                # slot, overflow rows their window leader's
-                qcomp = compact_rows(crit_any, Cq, leader=lead_local,
-                                     window=w)
-                perm = qcomp.perm[0]
-                q_sel = packed_project_q(cfg, bp["attn"], xn, sl, perm,
-                                         compute_backend)
-                mask_sel = mask.index_select(-2, perm.long())
-            else:
-                # similar rows use their leader's Q row and mask row
-                # (leaders are window-local, hence chunk-local)
-                q_sel = gather_rows(q, lead_local)
-                mask_sel = gather_rows(mask, lead_local)
-            s = torch.matmul(q_sel, kg.transpose(-1, -2)) * Dh ** -0.5
-            s = softcap(s, cfg.attn_softcap)
-            o = torch.matmul(masked_softmax(s, mask_sel), vg)
-            if packed:
-                o = gather_rows(o, qcomp.src_slot)
-            h = output_proj(cfg, bp["attn"], o)
-            ffn_comp = None
-            if packed and scfg.ffn_sparsity and not blk.use_moe:
-                ffn_comp = compact_rows(pb.ffn_critical, Cf,
-                                        leader=pb.ffn_leader - start,
-                                        window=w)
-            x = _residual_ffn(
-                cfg, blk, bp, x, h,
-                ffn_leader=(pb.ffn_leader - start if scfg.ffn_sparsity
-                            else None),
-                ffn_comp=ffn_comp, compute_backend=compute_backend)
+            with phase("spls.predict"):
+                xn = rms_norm(x, bp["ln1"], cfg.norm_eps)
+                # prediction: extend the predictor code pages, emit the plan.
+                # The prediction and vote stay horizon-independent: finalized
+                # columns keep their top-k candidacy and are only denied
+                # materialization and attention below
+                qh, k_codes, k_scale = ctx.encode_pred_qk(bp["attn"], xn)
+                _write_slots(codes_pg, k_codes, flat)
+                scale_pg.view(-1)[flat] = k_scale
+                kh_all = ctx.decode_pred_k(codes_pg[:, tl].reshape(KV, S, Dh),
+                                           scale_pg[tl].reshape(S),
+                                           dtype=dtype)[None]
+            with phase("spls.plan"):
+                pb = ctx.plan_block(qh, kh_all, k=topk_k, row0=start,
+                                    n_valid_rows=valid, n_cols=n_cols)
+                if kv_any is None:
+                    kv_any = pb.kv_any
+                lead_local = pb.q_leader - start
+                crit_any = pb.q_critical.any(dim=2).any(dim=1)      # (1, CS)
+                n_ffn = (pb.ffn_critical[0] & (ridx < valid)).sum()
+                if Ckv is not None and kv_written is None:
+                    # which of this chunk's own columns get a K/V projection
+                    ok = own_column_keep(pb.kv_any, start=start, chunk=CS,
+                                         valid=valid, last_keep=last_keep,
+                                         vote_need=kv_vote_need)
+                    kv_written = pack_within_capacity(
+                        ok, Ckv, anchor=start + ridx == last_keep)
+                    live_all = live.clone()
+                    end = min(start + CS, S)
+                    live_all[start:end] = kv_written[:end - start]
+                    n_kv = ok.sum()
+                cnt = torch.maximum(cnt, torch.stack(
+                    [crit_any.sum(), n_ffn,
+                     n_kv if n_kv is not None else torch.zeros_like(n_ffn)]))
+            with phase("chunk.attend"):
+                # formal K/V at original positions: every chunk row, except
+                # under vote_horizon == 1, where only the kept columns
+                if not packed:
+                    q, k_new, v_new = project_qkv(cfg, bp["attn"], xn,
+                                                  positions)
+                    kv_flat = flat
+                elif Ckv is not None:
+                    # pack order over the anchor-reserved written set: at most
+                    # Ckv True rows, so every written column lands in the perm
+                    # (filler slots scatter to the null page)
+                    kv_perm, _ = pack_by_mask(kv_written, Ckv)
+                    k_new, v_new = project_kv(
+                        cfg, bp["attn"], xn, positions, perm=kv_perm,
+                        compute_backend=compute_backend)
+                    kp = kv_perm.long()
+                    kv_flat = torch.where(kv_written[kp], flat[kp], 0)
+                else:
+                    k_new, v_new = project_kv(cfg, bp["attn"], xn, positions)
+                    kv_flat = flat
+                _write_slots(k_pages, k_new[0], kv_flat)
+                _write_slots(v_pages, v_new[0], kv_flat)
+                kg = k_pages[:, tl].reshape(1, KV, 1, S, Dh)
+                vg = v_pages[:, tl].reshape(1, KV, 1, S, Dh)
+                mask = pb.mask
+                if blk.window is not None:
+                    mask = mask & (age < blk.window)
+                if live_all is not None:
+                    # finalized earlier, or dropped by this chunk's K/V pack:
+                    # never projected, so never attended
+                    mask = mask & live_all
+                elif live is not None:
+                    # a finite horizon without the K/V pack: earlier-finalized
+                    # columns are pruned, this chunk's own always materialize
+                    mask = mask & live
+                # the two modes differ only in which q / mask rows the shared
+                # score-softmax-AV block sees
+                if packed:
+                    # only the union rows' scores (every head's leaders are in
+                    # the union); every row then reads its leader's packed
+                    # slot, overflow rows their window leader's
+                    qcomp = compact_rows(crit_any, Cq, leader=lead_local,
+                                         window=w)
+                    perm = qcomp.perm[0]
+                    q_sel = packed_project_q(cfg, bp["attn"], xn, sl, perm,
+                                             compute_backend)
+                    mask_sel = mask.index_select(-2, perm.long())
+                else:
+                    # similar rows use their leader's Q row and mask row
+                    # (leaders are window-local, hence chunk-local)
+                    q_sel = gather_rows(q, lead_local)
+                    mask_sel = gather_rows(mask, lead_local)
+                s = torch.matmul(q_sel, kg.transpose(-1, -2)) * Dh ** -0.5
+                s = softcap(s, cfg.attn_softcap)
+                o = torch.matmul(masked_softmax(s, mask_sel), vg)
+                if packed:
+                    o = gather_rows(o, qcomp.src_slot)
+                h = output_proj(cfg, bp["attn"], o)
+            with phase("chunk.ffn"):
+                ffn_comp = None
+                if packed and scfg.ffn_sparsity and not blk.use_moe:
+                    ffn_comp = compact_rows(pb.ffn_critical, Cf,
+                                            leader=pb.ffn_leader - start,
+                                            window=w)
+                x = _residual_ffn(
+                    cfg, blk, bp, x, h,
+                    ffn_leader=(pb.ffn_leader - start if scfg.ffn_sparsity
+                                else None),
+                    ffn_comp=ffn_comp, compute_backend=compute_backend)
         counts.append(cnt)
     x_last = x[:, valid - 1:valid]
     return (head_logits(cfg, params, x_last), kv_any,
