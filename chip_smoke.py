@@ -29,7 +29,16 @@ and nothing falls back to the CPU):
    ``flash_attention`` also the model families' GQA shapes (G 2, Dh 128;
    G 4, Dh 120 with a window; G 16).  Then the host
    path of a ``gather_rows`` and a ``paged_flash_decode`` call, phase by
-   phase (``time.perf_counter_ns`` over 10^4 calls).
+   phase (``time.perf_counter_ns`` over 10^4 calls).  The SPLS planner's
+   two kernels, which replace no TPU kernel (``spls_plan_block``,
+   ``spls_mfi``), against ``spls_plan_block_plain`` and
+   ``mfi_ffn_sparsity`` on the same card tensors at cell A's middle and
+   last chunk (1 x 8 x 2 x 256 x 2176, w 8), votes only, and at path
+   (ac)'s 8192-slot row block: mask, ``kv_any`` and the MFI outputs
+   bit-equal, ``is_critical`` / ``leader`` equal but at near-ties (an
+   earlier critical row at a float64 distance within 1e-6 x max(1, s) of
+   s); both timed at A's middle chunk beside their plain versions and
+   their byte bounds.
 3. Serve: full-width BERT-Base (12 x 768, vocab 30522, random weights from
    a seed), 8 requests of 384 tokens, 16 new tokens each, on three paths:
    (a) the causal form through ``PagedServingEngine`` with SPLS chunked
@@ -52,8 +61,10 @@ and nothing falls back to the CPU):
    Each path's launch counts are set to 0 just before its run and read
    just after; every kernel the path runs must have launched, and every
    request must finish.  The same requests then run through the plain
-   backends on the card (no kernel launches); every request's first token
-   must agree.
+   backends on the card (no backend kernel launches: the SPLS planner's
+   kernels follow the tensors' device, so both sides plan alike, and
+   phase 2 holds the planner to its plain version); every request's first
+   token must agree.
 4. Exact forward, path (d): ``repro_torch.models.forward`` of the same
    encoder on the 8 prompts as one batch, with the default ``plan_mode``
    (the exact SPLS plan in every layer, ``flash_attention``), against the
@@ -66,7 +77,7 @@ and nothing falls back to the CPU):
    and one more under ``torch.profiler`` (the card's busy time, its idle
    share of that call's wall, and the heaviest kernels); and
    one block at 8192 tokens, where "auto" plans row block by row block (no
-   kernel on that route).
+   backend kernel on that route; the plan kernels once a row block).
 5. bf16: the smoke form of the same model with ``compute_dtype=
    "bfloat16"`` on the three engine paths of phase 3, through the kernels
    and through the plain backends; every kernel of a path must launch, and
@@ -212,6 +223,17 @@ BF16_FLOPS = 989e12           # H100 SXM dense bf16 tensor cores
 INT32_OPS = 33.5e12
 L2_ROTATE_BYTES = 80 << 20    # > the 50 MB L2
 SEED = 0
+
+
+# the SPLS planner's kernels follow the tensors' device, not a backend's
+# name: every SPLS plan step on the card launches them, under the plain
+# backends too
+PLANNER_KERNELS = ("spls_plan_block", "spls_mfi")
+
+
+def _backend_launches(launches: dict) -> dict:
+    """The launch counts of the kernels a backend name chooses."""
+    return {k: v for k, v in launches.items() if k not in PLANNER_KERNELS}
 
 
 def _fail(msg: str) -> None:
@@ -1232,6 +1254,137 @@ def check_local_similarity(K, gen) -> dict:
             "cases": cases}
 
 
+def _plan_scores(shape, w, gen) -> torch.Tensor:
+    """PAM scores whose rows are a window's base row plus noise that grows
+    down the window, so windows hold both critical and similar rows."""
+    *lead, C, S = shape
+    base = torch.randn((*lead, C // w, 1, S), device="cuda", generator=gen)
+    noise = torch.randn((*lead, C // w, w, S), device="cuda", generator=gen)
+    grow = torch.linspace(0.0, 1.5, w, device="cuda")[:, None]
+    return ((base + grow * noise) * 8.0).reshape(shape).contiguous()
+
+
+def _near_tie_rows(name, scores, scale, w, s, plain, got) -> int:
+    """The rows where the kernel's ``is_critical`` / ``leader`` differ from
+    the plain chain's; fails unless each window's first differing row has
+    an earlier critical row at a float64 distance within 1e-6 x max(1, s)
+    of ``s`` (later rows of that window are its consequence)."""
+    mask, crit_p, lead_p, _ = plain
+    _, crit_k, lead_k, _ = got
+    C, S = scores.shape[-2:]
+    diff = ((crit_p != crit_k) | (lead_p != lead_k)).reshape(-1, C // w, w)
+    bad = diff.any(-1).nonzero().tolist()
+    if not bad:
+        return 0
+    pam = (scores * scale).to(torch.bfloat16).to(torch.float64)
+    spa = torch.where(mask, pam, 0.0).reshape(-1, C // w, w, S)
+    crit = crit_p.reshape(-1, C // w, w)
+    rows = 0
+    for h, win in bad:
+        x = spa[h, win]
+        j = int(diff[h, win].nonzero()[0])
+        norm = x.abs().sum(-1)
+        d = [float((x[i] - x[j]).abs().sum() / (norm[i] + norm[j] + 1e-6))
+             for i in range(j) if crit[h, win, i]]
+        if not any(abs(v - s) <= 1e-6 * max(1.0, s) for v in d):
+            _fail(f"spls_plan_block case {name}: head {h} window {win} row "
+                  f"{j} differs from the plain chain, distances {d} to its "
+                  f"earlier critical rows are no near-tie of {s}")
+        rows += int(diff[h, win, j:].sum())
+    return rows
+
+
+def check_spls_plan(K, gen) -> list:
+    """``spls_plan_block`` and ``spls_mfi`` against their plain versions
+    on the same card tensors: cell A's middle and last chunk (1 x 8 x 2 x
+    256 rows x 2176 slots, w 8, a 1964-token prompt), its votes-only block,
+    and path (ac)'s 8192-slot row block (1 x 8 x 4 x 512, Dh 120).  Mask,
+    ``kv_any`` and the MFI outputs bit-equal; ``is_critical`` / ``leader``
+    equal but at near-ties.  Timed at A's middle chunk."""
+    from repro_torch.core.mfi import mfi_ffn_sparsity
+    from repro_torch.core.spls_chunked import spls_plan_block_plain
+    from repro_torch.core.topk import topk_count
+
+    s_thr, f_thr, k_a = 0.6, 6, topk_count(1964, 0.12)
+    a_shape = (1, 8, 2, 256, 2176)
+    # name: (shape, Dh, k, row0, n_valid_rows, n_cols)
+    cases = {"cell_a_middle": (a_shape, 128, k_a, 1024, 256, 1280),
+             "cell_a_last": (a_shape, 128, k_a, 1792, 172, 1964),
+             "ac_block_8192": ((1, 8, 4, 512, 8192), 120,
+                               topk_count(8192, 0.12), 4096, 512, 8192)}
+    w, out = 8, []
+    for name, (shape, Dh, k, row0, valid, n_cols) in cases.items():
+        scores = _plan_scores(shape, w, gen)
+        kw = dict(scale=Dh ** -0.5, k=k, row0=row0, n_valid_rows=valid,
+                  n_cols=n_cols, causal=True, w=w, s_threshold=s_thr)
+        got = K.spls_plan_block(scores, **kw)
+        plain = spls_plan_block_plain(scores, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(got[0], plain[0]) or \
+                not torch.equal(got[3], plain[3]):
+            _fail(f"spls_plan_block case {name}: mask equal "
+                  f"{torch.equal(got[0], plain[0])}, kv_any equal "
+                  f"{torch.equal(got[3], plain[3])}")
+        ties = _near_tie_rows(name, scores, kw["scale"], w, s_thr, plain, got)
+        votes = K.spls_plan_block(scores, votes_only=True, **kw)
+        vplain = spls_plan_block_plain(scores, votes_only=True, **kw)
+        if votes[:3] != (None, None, None) or \
+                not torch.equal(votes[3], vplain[3]):
+            _fail(f"spls_plan_block case {name}: the votes-only kv_any "
+                  f"differs from the plain version's")
+        lead = got[2].reshape(shape[0], -1, shape[3])
+        ffn, ffn_p = K.spls_mfi(lead, w, f_thr), \
+            mfi_ffn_sparsity(lead, w, f_thr)
+        if not all(torch.equal(a, b) for a, b in zip(ffn, ffn_p)):
+            _fail(f"spls_mfi case {name}: differs from mfi_ffn_sparsity on "
+                  f"the same leaders")
+        out.append({"case": name, "shape": list(shape), "w": w, "k": k,
+                    "row0": row0, "n_valid_rows": valid, "n_cols": n_cols,
+                    "near_tie_rows": ties, "rows": plain[1].numel(),
+                    "critical": int(plain[1].sum())})
+        del scores, got, plain, votes, vplain
+    print(json.dumps({"spls_plan_cases": out}))
+
+    # timed at A's middle chunk
+    shape, Dh, k, row0, valid, n_cols = cases["cell_a_middle"]
+    kw = dict(scale=Dh ** -0.5, k=k, row0=row0, n_valid_rows=valid,
+              n_cols=n_cols, causal=True, w=w, s_threshold=s_thr)
+    n_heads, C, S = shape[1] * shape[2], shape[3], shape[4]
+    in_bytes = 4 * n_heads * C * S
+    sets = [(_plan_scores(shape, w, gen),) for _ in range(_n_sets(in_bytes))]
+    plan = lambda x: K.spls_plan_block(x, **kw)
+    t = {"ms": _time_ms(plan, sets),
+         "plain_ms": _time_ms(lambda x: spls_plan_block_plain(x, **kw),
+                              sets, reps=3, inner=5),
+         "kernel_ms": _device_ms(plan, sets, "spls_plan_kernel")}
+    # scores read, mask and kv_any written
+    byte_s = (in_bytes + n_heads * C * S + n_heads * S) / HBM_BYTES_PER_S
+    common = {"route": "cuda", "source": "src/repro_torch/csrc/spls_plan.cu",
+              "replaces": "none: the reference's XLA ops"}
+    plan_row = {"name": "spls_plan_block", **common,
+                "near_tie_rows": sum(c["near_tie_rows"] for c in out),
+                "shape": {"B": shape[0], "KV": shape[1], "G": shape[2],
+                          "C": C, "S": S, "w": w, "k": k},
+                "tolerance": "mask, kv_any exact; is_critical / leader "
+                             "exact but at near-ties (1e-6 x max(1, s))",
+                **t, "bound_ms": 1e3 * byte_s, "bound_by": "bytes",
+                "cases": out}
+    leads = [(K.spls_plan_block(x, **kw)[2].reshape(1, n_heads, C),)
+             for (x,) in sets]
+    mfi = lambda x: K.spls_mfi(x, w, f_thr)
+    t = {"ms": _time_ms(mfi, leads),
+         "plain_ms": _time_ms(lambda x: mfi_ffn_sparsity(x, w, f_thr),
+                              leads),
+         "kernel_ms": _device_ms(mfi, leads, "spls_mfi_kernel")}
+    # leaders read; is_critical, leader, votes written
+    byte_s = (4 * n_heads * C + 9 * C) / HBM_BYTES_PER_S
+    mfi_row = {"name": "spls_mfi", **common,
+               "shape": {"B": 1, "H": n_heads, "L": C, "w": w, "f": f_thr},
+               "tolerance": "exact", **t, "bound_ms": 1e3 * byte_s,
+               "bound_by": "bytes"}
+    return [plan_row, mfi_row]
+
+
 # ---------------------------------------------------------------------------
 # phase 3: serve full-width BERT-Base on each path
 # ---------------------------------------------------------------------------
@@ -1312,7 +1465,7 @@ def serve_path(K, path: str, Engine, params, cfg, scfg, plain_cfg,
 
     _, reqs_p, wall_p, launches_p, _ = _serve_run(
         K, Engine, plain_cfg, params, plain_scfg, prompts, max_new)
-    if any(launches_p.values()):
+    if any(_backend_launches(launches_p).values()):
         _fail(f"the plain backends of the {path} path launched kernels: "
               f"{launches_p}")
     first_bad = [r.rid for r, p in zip(reqs, reqs_p)
@@ -1572,7 +1725,7 @@ def serve_bf16(K) -> dict:
                 _fail(f"bf16 {name}: requests not done")
             outs.append([list(r.output) for r in reqs])
         zero = [k for k in must if launches[0][k] == 0]
-        if zero or any(launches[1].values()):
+        if zero or any(_backend_launches(launches[1]).values()):
             _fail(f"bf16 {name}: kernels {zero} never launched, or the "
                   f"plain backends launched {launches[1]}")
         got, ref = outs
@@ -2927,7 +3080,8 @@ def qwen3_sampled_serving(K, params) -> dict:
                "launches": launches}
         rows.append(row)
         if bad or again != toks or seed1 == toks or cold != greedy or \
-                any(launches_p.values()) or any(launches_pc.values()) or \
+                any(_backend_launches(launches_p).values()) or \
+                any(_backend_launches(launches_pc).values()) or \
                 any(launches[k] == 0 for k in must):
             _fail(f"qwen3_sampled_serving {name}: {row}, plain launches "
                   f"{launches_p}")
@@ -3060,7 +3214,7 @@ def qwen3_flat_heads(K) -> dict:
                   f"model axis, expected 'flat'")
         flat, launches, wall, picks = run(kern)
         flat_plain, launches_p, wall_p, picks_p = run(plain)
-    if any(launches_p.values()):
+    if any(_backend_launches(launches_p).values()):
         _fail(f"qwen3_flat_heads: the plain backends launched {launches_p}")
     zero = [k for k in ("flash_attention", "flash_decode") if not launches[k]]
     if zero:
@@ -3987,10 +4141,13 @@ def exact_forward(K) -> dict:
     wall2 = time.perf_counter() - t0
     peak2 = torch.cuda.max_memory_allocated() - base
     long_launches = K.launch_counts()
-    if not torch.isfinite(y).all() or any(long_launches.values()):
+    blocks = long_launches["spls_plan_block"]
+    if not torch.isfinite(y).all() or \
+            any(_backend_launches(long_launches).values()) or \
+            not blocks or long_launches["spls_mfi"] != blocks:
         _fail(f"block at L={L2}: finite {bool(torch.isfinite(y).all())}, "
-              f"launches {long_launches} (the row-block route has no "
-              f"kernel)")
+              f"launches {long_launches} (the row-block route launches no "
+              f"backend kernel, the plan kernels once a row block)")
     xn2 = rms_norm(x2, bp0["ln1"], cfg.norm_eps)
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
@@ -4001,7 +4158,8 @@ def exact_forward(K) -> dict:
     kept = lambda m: float(m.double().mean())
     print(json.dumps({
         "path": "long_block_chunked_plan", "seq": L2, "layer": 0,
-        "route": "plan_scan -> torch_chunked (no kernel)",
+        "route": "plan_scan (spls_plan_block, spls_mfi) -> torch_chunked",
+        "plan_kernel_launches": blocks,
         "wall_s": wall2, "peak_device_bytes_above_inputs": peak2,
         "plan_only_peak_bytes_above_inputs": plan_peak,
         "one_float32_pam_bytes": cfg.n_heads * L2 * L2 * 4,
@@ -4061,7 +4219,7 @@ def _phases(K, ptxas: dict, smi: str, host: dict) -> int:
     rows = [check_gathered_matmul(K, gen), check_gather_rows(K, gen),
             check_paged_decode(K, gen), check_flash_attention(K, gen),
             check_flash_decode(K, gen), check_hlog_qmatmul(K, gen),
-            check_local_similarity(K, gen)]
+            check_local_similarity(K, gen), *check_spls_plan(K, gen)]
     host_path(K, gen)
     paths = serve(K)
     paths["noncausal_exact_forward"], report_d = exact_forward(K)

@@ -15,23 +15,25 @@ O(L^2) mask): its peak is O(row_block * L) per head.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.kernels.spls_plan import (PlanBlock, spls_mfi,
+                                          spls_plan_block)
 from repro_torch.loops import scan
 from repro_torch.observability.trace import phase
 from repro_torch.sharding.logical import (arange_like, from_local,
                                          head_placements, is_dtensor)
 
-from .mfi import mfi_ffn_sparsity
+from .mfi import FFNSparsity
 from .predict import head_scores
 from .similarity import local_similarity
 from .topk import topk_count
 
 __all__ = ["CAUSAL_FILL", "ChunkedPlan", "ChunkPlanBlock", "plan_chunk",
            "plan_chunk_votes", "bisect_topk_mask", "chunked_plan_scan",
-           "votes_from_kv_any"]
+           "spls_plan_block_plain", "votes_from_kv_any"]
 
 # Causal / invalid-column fill for PAM blocks.  Must round-trip bfloat16
 # (bf16 max is ~3.39e38) and sit far below any real predicted score so the
@@ -64,6 +66,41 @@ def bisect_topk_mask(pam32: torch.Tensor, k, n_iters: int = 12
     return pam32 >= lo
 
 
+def spls_plan_block_plain(scores: torch.Tensor, *, scale: float, k, row0,
+                          n_valid_rows, n_cols, causal: bool,
+                          w: Optional[int] = None,
+                          s_threshold: Optional[float] = None,
+                          votes_only: bool = False) -> PlanBlock:
+    """Each head's plan block after the PAM's scores ``(B, KV, G, C, S)``:
+    ``(mask (B,KV,G,C,S), is_critical (B,KV,G,C), leader (B,KV,G,C) int32
+    block-local rows, kv_any (B,KV,G,S))`` for similarity windows of ``w``
+    rows and the threshold ``s_threshold``; with ``votes_only`` the first
+    three are None (and ``w`` and ``s_threshold`` are not read).  The plain
+    version of :func:`repro_torch.kernels.spls_plan.spls_plan_block`.
+
+    The PAM is the scores times ``scale`` rounded to bfloat16 (the
+    prediction is already 8-bit math; the reference stores the block in
+    bf16) and widened again, so both packages threshold the same values.
+    """
+    C, S = scores.shape[-2:]
+    pam = (scores * scale).to(torch.bfloat16)
+    qi = row0 + arange_like(scores, C)
+    kj = arange_like(scores, S)
+    cmask = (kj[None, :] < n_cols).expand(C, S)
+    if causal:
+        cmask = cmask & (kj[None, :] <= qi[:, None])
+    pam = pam.masked_fill(~cmask, CAUSAL_FILL)
+    pam32 = pam.to(torch.float32)
+    valid_rows = arange_like(scores, C) < n_valid_rows
+    mask = bisect_topk_mask(pam32, k)
+    mask = mask & cmask & valid_rows[:, None]
+    if votes_only:
+        return None, None, None, mask.any(dim=-2)
+    spa = torch.where(mask, pam32, torch.zeros_like(pam32))
+    sim = local_similarity(spa, w, s_threshold, valid_len=n_valid_rows)
+    return mask, sim.is_critical, sim.leader, mask.any(dim=-2)
+
+
 class ChunkPlanBlock(NamedTuple):
     """Plan for one row block of the PAM over ``S`` column slots; leading
     dims ``(B, KV, G)``, ``C`` rows."""
@@ -76,34 +113,53 @@ class ChunkPlanBlock(NamedTuple):
     ffn_leader: torch.Tensor    # (B, C) int32 global row ids
 
 
-def _block_pam_mask(qh_blk: torch.Tensor, kh: torch.Tensor, *, k, row0,
-                    n_valid_rows, n_cols, causal: bool,
-                    scale: Optional[float]
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """PAM block -> top-k mask.  Returns ``(mask (B,KV,G,C,S), pam32)``.
+def _per_head(qh_blk: torch.Tensor, kh: torch.Tensor, *,
+              scale: Optional[float], **kw) -> PlanBlock:
+    """:func:`~repro_torch.kernels.spls_plan.spls_plan_block` on the
+    block's scores, under the phase ``spls.topk`` of a serving engine's
+    trace.  On a ``DTensor`` every device runs it on its own (batch, head)
+    shards (the block is local to a (batch, head) row; op by op, DTensor
+    would plan each op) and the outputs are wrapped back."""
 
-    The PAM is computed in float32, rounded to bfloat16 (the prediction is
-    already 8-bit math; the reference stores the block in bf16) and widened
-    again, so both packages threshold the same values.  The bisection is
-    the phase ``spls.topk`` of a serving engine's trace.
-    """
-    Dh = qh_blk.shape[-1]
-    C = qh_blk.shape[-2]
-    S = kh.shape[-2]
-    scale = scale if scale is not None else Dh ** -0.5
-    pam = (head_scores(qh_blk, kh) * scale).to(torch.bfloat16)
-    qi = row0 + arange_like(qh_blk, C)
-    kj = arange_like(qh_blk, S)
-    cmask = (kj[None, :] < n_cols).expand(C, S)
-    if causal:
-        cmask = cmask & (kj[None, :] <= qi[:, None])
-    pam = pam.masked_fill(~cmask, CAUSAL_FILL)
-    pam32 = pam.to(torch.float32)
-    valid_rows = arange_like(qh_blk, C) < n_valid_rows
-    with phase("spls.topk"):
-        mask = bisect_topk_mask(pam32, k)
-    mask = mask & cmask & valid_rows[:, None]
-    return mask, pam32
+    def block(qh_blk, kh):
+        scores = head_scores(qh_blk, kh)
+        # masks and row ids carry no gradient: a training step's scores
+        # (which require grad) take the kernel too
+        with phase("spls.topk"), torch.no_grad():
+            return spls_plan_block(scores, scale=(
+                scale if scale is not None else qh_blk.shape[-1] ** -0.5),
+                **kw)
+
+    if not is_dtensor(qh_blk):
+        return block(qh_blk, kh)
+    mesh = qh_blk.device_mesh
+    head, kv = head_placements(qh_blk)
+    outs = block(qh_blk.redistribute(mesh, head).to_local(),
+                 kh.redistribute(mesh, kv).to_local())
+    lead = qh_blk.shape[:3]
+    return tuple(None if t is None else
+                 from_local(t, mesh, head, (*lead, *t.shape[3:]))
+                 for t in outs)
+
+
+def _mfi(lead: torch.Tensor, window: int, f_threshold: int) -> FFNSparsity:
+    """:func:`~repro_torch.kernels.spls_plan.spls_mfi` over every head of
+    the block-local leaders ``(B, KV, G, C)``.  The vote needs all of a
+    token's heads: a ``DTensor``'s leaders (int32, a few KB) are gathered
+    whole on the head axes, their batch shards kept, and the outputs
+    wrapped back."""
+    B, KVp, Gp, C = lead.shape
+    if not is_dtensor(lead):
+        return spls_mfi(lead.reshape(B, KVp * Gp, C), window, f_threshold)
+    from torch.distributed.tensor import Replicate
+
+    mesh = lead.device_mesh
+    rows = tuple(p if p.is_shard() and p.dim == 0 else Replicate()
+                 for p in lead.placements)
+    local = lead.redistribute(mesh, rows).to_local()
+    ffn = spls_mfi(local.reshape(local.shape[0], KVp * Gp, C), window,
+                   f_threshold)
+    return FFNSparsity(*(from_local(t, mesh, rows, (B, C)) for t in ffn))
 
 
 def plan_chunk_votes(qh_blk: torch.Tensor, kh: torch.Tensor, *, k, row0,
@@ -111,11 +167,12 @@ def plan_chunk_votes(qh_blk: torch.Tensor, kh: torch.Tensor, *, k, row0,
                      scale: Optional[float] = None) -> torch.Tensor:
     """Column-keep contribution only: ``(B, KV, G, S)`` bool.  The page-
     prune vote needs just the zero-column detection, so the similarity
-    stage (the largest intermediate of a full block) is skipped."""
-    mask, _ = _block_pam_mask(qh_blk, kh, k=k, row0=row0,
-                              n_valid_rows=n_valid_rows, n_cols=n_cols,
-                              causal=causal, scale=scale)
-    return mask.any(dim=-2)
+    stage (the largest intermediate of a full block) is skipped: one
+    votes-only :func:`~repro_torch.kernels.spls_plan.spls_plan_block`."""
+    *_, kv_any = _per_head(qh_blk, kh, scale=scale, k=k, row0=row0,
+                           n_valid_rows=n_valid_rows, n_cols=n_cols,
+                           causal=causal, votes_only=True)
+    return kv_any
 
 
 def plan_chunk(qh_blk: torch.Tensor, kh: torch.Tensor, *, k, row0,
@@ -129,34 +186,16 @@ def plan_chunk(qh_blk: torch.Tensor, kh: torch.Tensor, *, k, row0,
     seen so far.  ``row0`` and C must be window multiples, so similarity
     windows are exactly those of an unchunked pass.  Padded rows are never
     critical and never lead; padded/future columns are filled with
-    :data:`CAUSAL_FILL` and never voted for.
+    :data:`CAUSAL_FILL` and never voted for.  Each head's block after the
+    scores (the top-k, the similarity, the column OR) is one
+    :func:`~repro_torch.kernels.spls_plan.spls_plan_block` (the phase
+    ``spls.topk`` of a serving engine's trace), the MFI one
+    :func:`~repro_torch.kernels.spls_plan.spls_mfi`.
     """
-    B, KVp, Gp, C, Dh = qh_blk.shape
-
-    def per_head(qh_blk, kh):
-        mask, pam32 = _block_pam_mask(qh_blk, kh, k=k, row0=row0,
-                                      n_valid_rows=n_valid_rows,
-                                      n_cols=n_cols, causal=causal,
-                                      scale=scale)
-        spa = torch.where(mask, pam32, torch.zeros_like(pam32))
-        sim = local_similarity(spa, window, s_threshold,
-                               valid_len=n_valid_rows)
-        return mask, sim.is_critical, sim.leader, mask.any(dim=-2)
-
-    if is_dtensor(qh_blk):
-        # every stage but MFI is local to a (batch, head) row: each device
-        # runs it on its own shards (op by op, DTensor would plan each)
-        mesh = qh_blk.device_mesh
-        head, kv = head_placements(qh_blk)
-        outs = per_head(qh_blk.redistribute(mesh, head).to_local(),
-                        kh.redistribute(mesh, kv).to_local())
-        mask, crit, lead, kv_any = (
-            from_local(t, mesh, head, (B, KVp, Gp, *t.shape[3:]))
-            for t in outs)
-    else:
-        mask, crit, lead, kv_any = per_head(qh_blk, kh)
-    leaders_h = lead.reshape(B, KVp * Gp, C)        # block-local for MFI
-    ffn = mfi_ffn_sparsity(leaders_h, window, f_threshold)
+    mask, crit, lead, kv_any = _per_head(
+        qh_blk, kh, scale=scale, k=k, row0=row0, n_valid_rows=n_valid_rows,
+        n_cols=n_cols, causal=causal, w=window, s_threshold=s_threshold)
+    ffn = _mfi(lead, window, f_threshold)           # block-local leaders
     return ChunkPlanBlock(mask=mask, q_critical=crit,
                           q_leader=lead + row0,     # block-local -> global
                           kv_any=kv_any, ffn_critical=ffn.is_critical,

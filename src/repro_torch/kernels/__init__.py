@@ -18,11 +18,12 @@ from .flash_attention import flash_attention, flash_attention_plain
 from .flash_decode import flash_decode, flash_decode_plain
 from .hlog_qmatmul import hlog_qmatmul, hlog_qmatmul_plain
 from .local_similarity import local_similarity_dist, local_similarity_plain
+from .spls_plan import spls_mfi, spls_plan_block
 from . import ops
 
 KERNELS = (gathered_matmul, gather_rows, paged_flash_decode,
            flash_attention, flash_decode, hlog_qmatmul,
-           local_similarity_dist)
+           local_similarity_dist, spls_plan_block, spls_mfi)
 
 
 def reset_launch_counts() -> None:
@@ -41,5 +42,6 @@ __all__ = ["gathered_matmul", "gather_rows", "paged_flash_decode",
            "local_similarity_dist", "gathered_matmul_plain",
            "gather_rows_plain", "paged_decode_plain",
            "flash_attention_plain", "flash_decode_plain",
-           "hlog_qmatmul_plain", "local_similarity_plain", "ops", "KERNELS",
+           "hlog_qmatmul_plain", "local_similarity_plain", "spls_plan_block",
+           "spls_mfi", "ops", "KERNELS",
            "reset_launch_counts", "launch_counts"]

@@ -33,7 +33,8 @@ SOURCES = {"gathered_matmul": "gathered_matmul.cu",
            "flash_attention": "flash_attention.cu",
            "flash_decode": "flash_decode.cu",
            "hlog_qmatmul": "hlog_qmatmul.cu",
-           "local_similarity": "local_similarity.cu"}
+           "local_similarity": "local_similarity.cu",
+           "spls_plan": "spls_plan.cu"}
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -498,7 +498,8 @@ def test_cpu_tensors_take_the_plain_version():
                                  "paged_flash_decode": 0,
                                  "flash_attention": 0, "flash_decode": 0,
                                  "hlog_qmatmul": 0,
-                                 "local_similarity_dist": 0}
+                                 "local_similarity_dist": 0,
+                                 "spls_plan_block": 0, "spls_mfi": 0}
 
 
 # the tiling of the CUDA gathered_matmul (a pure function of the shape)
